@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one CUDA card.
+
+    python3 chip_smoke.py            # the full-size world, as the port's proof
+    python3 chip_smoke.py --users 65536 --batches 1   # a short rehearsal
+
+The world is the paper's LiveJournal deployment (Sec. 6.2): 1.1 M users,
+k = 12, with the repo's bench shape L = 4, D = 128, bucket capacity
+C = 512 and m = 10, made from `--seed`.  Phases, each of which raises on
+failure:
+
+  1. environment: torch, CUDA, the card's name and power limit;
+  2. build: every kernel from `src/repro_torch/kernels/csrc`, in parallel;
+  3. world: corpus, hyperplanes, corpus codes through the simhash kernel,
+     `build_store_host` at C = 512, and the packed (hamming) store;
+  4. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it, with times;
+  5. runtime search through `IndexRuntime(use_kernels=True)`, dot and
+     hamming, for lsh / nb / cnb and ranked cnb: ms per batch, queries/s,
+     self-hit@1 and recall@10 against brute-force top-10;
+  6. contains, equal to the staged plain path;
+  7. the engine (`LshEngine(use_kernels=True)`), ids equal to the runtime's;
+  8. churn: insert of re-announces, expire, search; `generation` advances
+     as the reference's does;
+  9. the kernels line.  Each path of phases 5-8 (a search cell, contains,
+     engine search, engine contains, churn) runs with the launch counts
+     set to 0 just before it and read just after, and fails unless each
+     kernel it should go through was launched; a kernel's `launches` is
+     the sum over the paths, `launches_by_path` the counts of each.
+
+The last line is `{"ok": true, "device": {...}}`.  With no CUDA device,
+or without the repo around it, the script exits non-zero with no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+TIE = 1e-5                  # dot-score tolerance and near-tie width
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    fp32 operations over the fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_topk(ki, ks, pi, ps, what: str) -> tuple[float, int]:
+    """Hold kernel (ki, ks) against plain (pi, ps) top-m rows.
+
+    Scores agree to TIE.  Ids agree exactly, except at ranks where the
+    plain scores of a neighbouring rank lie within TIE (the order of
+    near-equal scores depends on summation order), and at the last rank,
+    whose tie partner may be the unseen rank m + 1.  Returns (max score
+    error, count of such near-tie exceptions)."""
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    ki, pi = ki.cpu().numpy(), pi.cpu().numpy()
+    live = np.isfinite(ps)
+    if not np.array_equal(live, np.isfinite(ks)):
+        raise AssertionError(f"{what}: live lanes differ")
+    err = float(np.max(np.abs(ks[live] - ps[live]), initial=0.0))
+    if err > TIE:
+        raise AssertionError(f"{what}: max score error {err} > {TIE}")
+    near = np.zeros_like(live)
+    gap = np.abs(np.diff(np.where(live, ps, 0.0), axis=1)) <= TIE
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    near[:, -1] = True
+    bad = (ki != pi) & ~near
+    if bad.any():
+        r, c = np.argwhere(bad)[0]
+        raise AssertionError(
+            f"{what}: ids differ at row {r} rank {c} outside a near tie: "
+            f"kernel {ki[r]} {ks[r]} plain {pi[r]} {ps[r]}")
+    return err, int(((ki != pi) & near).sum())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--users", type=int, default=1_100_000)
+    ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core import runtime as rt_mod
+    from repro_torch.core.corpus import DenseCorpus, exact_topk_dense
+    from repro_torch.core.engine import EngineConfig, LshEngine
+    from repro_torch.core.hashing import LshParams, make_hyperplanes
+    from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
+    from repro_torch.core.store import BucketStore, build_store_host
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import bucket_topk as bt_mod
+    from repro_torch.kernels import fused_query as fq_mod
+    from repro_torch.kernels import simhash as sh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    N, D, K, L, C, M, NQ = args.users, 128, 12, 4, 512, 10, 1024
+    NB = 1 << K
+
+    # -- 1. environment -----------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
+    log(smi)
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.time()
+    _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} kernels in {time.time() - t0:.1f} s")
+    for name, out in _build.ptxas_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # -- 3. world -----------------------------------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(args.seed)
+    x = torch.from_numpy(
+        rng.standard_normal((N, D), dtype=np.float32)).to(dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    params = LshParams(d=D, k=K, L=L, seed=args.seed)
+    h = make_hyperplanes(params, torch.Generator().manual_seed(args.seed),
+                         device=dev)
+    corpus_codes = ops.simhash(x, h)
+    store = build_store_host(corpus_codes, NB, C, payload=x, device=dev)
+    store_h = packed_mod.pack_store_payload(store, h)
+    ids_only = BucketStore(store.ids, store.timestamps, store.write_ptr, None)
+    corpus = DenseCorpus(x)
+    torch.cuda.synchronize()
+    occ = store.occupancy().float()
+    live = int((store.ids >= 0).sum())
+    log(f"[world] N={N} D={D} k={K} L={L} NB={NB} C={C}: built in "
+        f"{time.time() - t0:.1f} s; device bytes "
+        f"{torch.cuda.memory_allocated()} (dot payload "
+        f"{store.payload.numel() * 4}, hamming payload "
+        f"{store_h.payload.numel() * 4}); occupancy mean "
+        f"{float(occ.mean()):.1f} max {int(occ.max())}; evicted "
+        f"{N * L - live} of {N * L} (entry, table) pairs")
+
+    qids = torch.from_numpy(
+        rng.choice(N, size=(args.batches, NQ), replace=False
+                   ).astype(np.int64)).to(dev)
+    q = x[qids[0]].contiguous()
+    kernels = {}
+
+    # -- 4. each kernel against its plain version ---------------------------
+    # simhash, at the query batch and at the corpus build
+    cfg = RuntimeConfig(params=params, variant="cnb", use_kernels=True)
+
+    def simhash_check(xs, packed):
+        got = ops.simhash(xs, h, packed=packed)
+        want = sh_mod.simhash_plain(xs, h, packed=packed)
+        flips = torch.bitwise_xor(got, want)
+        if not bool(flips.any()):
+            return 0, 0.0
+        proj = torch.einsum("nd,lkd->nlk", xs.double(), h.double())
+        band = 1e-5 * torch.linalg.vector_norm(xs.double(), dim=1)[:, None, None] \
+            * torch.linalg.vector_norm(h.double(), dim=2)[None]
+        flat_proj = proj.reshape(xs.shape[0], -1)
+        flat_band = band.reshape(xs.shape[0], -1)
+        if packed:
+            fl = packed_mod.unpack_codes(flips, K, L)
+        else:
+            fl = flips
+        bits = ((fl.long()[..., None] >> torch.arange(K, device=dev)) & 1)
+        bits = bits.reshape(xs.shape[0], -1) > 0
+        n_flip = int(bits.sum())
+        outside = bits & (flat_proj.abs() > flat_band)
+        if bool(outside.any()):
+            raise AssertionError(
+                f"simhash: {int(outside.sum())} flipped bits outside the "
+                f"near-zero band")
+        return n_flip, float(flat_proj.abs()[bits].max())
+
+    n_q, e_q = simhash_check(q, False)
+    n_w, e_w = simhash_check(q, True)
+    n_c, e_c = 0, 0.0
+    for s0 in range(0, N, 1 << 18):
+        a, b = simhash_check(x[s0:s0 + (1 << 18)], False)
+        n_c, e_c = n_c + a, max(e_c, b)
+    h_t = h.reshape(L * K, D).T.contiguous()
+    sh_ms = cuda_ms(torch, lambda: ops.simhash(q, h), 50)
+    sh_plain = cuda_ms(torch, lambda: sh_mod.simhash_plain(q, h), 50)
+    sh_lib = cuda_ms(torch, lambda: torch.matmul(q, h_t), 50)
+    shc_ms = cuda_ms(torch, lambda: ops.simhash(x, h), 5)
+    shc_plain = cuda_ms(torch, lambda: torch.cat([
+        sh_mod.simhash_plain(x[s:s + (1 << 18)], h)
+        for s in range(0, N, 1 << 18)]), 2)
+    shc_lib = cuda_ms(torch, lambda: torch.matmul(x, h_t), 5)
+    b_ms, b_by = bound(NQ * D * 4 + L * K * D * 4 + NQ * L * 4,
+                       2.0 * NQ * D * L * K)
+    bc_ms, _ = bound(N * D * 4 + L * K * D * 4 + N * L * 4,
+                     2.0 * N * D * L * K)
+    log(f"[kernel] simhash: flipped bits within the 1e-5 band: query codes "
+        f"{n_q}, query words {n_w}, corpus codes {n_c} (max |proj| "
+        f"{max(e_q, e_w, e_c):.3g}); n={NQ}: {sh_ms:.4f} ms, plain "
+        f"{sh_plain:.4f} ms, matmul {sh_lib:.4f} ms, bound {b_ms:.4f} ms; "
+        f"n={N}: {shc_ms:.4f} ms, plain {shc_plain:.4f} ms, matmul "
+        f"{shc_lib:.4f} ms, bound {bc_ms:.4f} ms")
+    kernels["simhash"] = dict(
+        name="simhash", route="cuda",
+        source="src/repro_torch/kernels/csrc/simhash.cu",
+        replaces="src/repro/kernels/simhash.py:85",
+        max_abs_err=max(e_q, e_w, e_c), ms=sh_ms, plain_ms=sh_plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=sh_lib)
+
+    # fused_query / fused_contains on the main path's rows
+    plan, flat = rt_mod._flat_plan(cfg, rt_mod.LOCAL, q, h)
+    fb, pword = rt_mod._fused_probe_rows(cfg, NB, flat["table"],
+                                         flat["local"], flat["mask"])
+    r, P = fb.shape
+    ids_flat = store.ids.reshape(L * NB, C)
+    pay_flat = store.payload.reshape(L * NB, C, D)
+    words_flat = store_h.payload.reshape(L * NB, C, -1)
+    W = words_flat.shape[-1]
+    q_rows = q[flat["qidx"]].contiguous()
+    w_rows = packed_mod.pack_codes(plan.codes, K)[flat["qidx"]].contiguous()
+    meta = torch.stack([pword, torch.full_like(pword, -1)], dim=1)
+    tgt_meta = torch.stack([pword, qids[0][flat["qidx"]].to(torch.int32)],
+                           dim=1)
+    occ_rows = occ.reshape(-1)[fb.long()]                       # [r, P]
+    pvalid = ((pword[:, None] >> torch.arange(P, device=dev)) & 1) > 0
+    n_probe_rows = int(pvalid.sum())
+    n_live = int((occ_rows * pvalid).sum())
+    chunk = 512
+
+    def plain_rows(fn):
+        outs = [fn(slice(s, s + chunk)) for s in range(0, r, chunk)]
+        return tuple(torch.cat(t) for t in zip(*outs))
+
+    ki, ks = ops.fused_query(ids_flat, pay_flat, q_rows, fb, meta, m=M)
+    pi, ps = plain_rows(lambda s: fq_mod.fused_query_plain(
+        ids_flat, pay_flat, q_rows[s], fb[s], meta[s], m=M))
+    fq_err, fq_ties = compare_topk(ki, ks, pi, ps, "fused_query dot")
+    fq_ms = cuda_ms(torch, lambda: ops.fused_query(
+        ids_flat, pay_flat, q_rows, fb, meta, m=M), 10)
+    fq_plain = cuda_ms(torch, lambda: plain_rows(
+        lambda s: fq_mod.fused_query_plain(
+            ids_flat, pay_flat, q_rows[s], fb[s], meta[s], m=M)), 1)
+    fq_bytes = (n_probe_rows * C * 4 + n_live * D * 4 + r * D * 4
+                + r * (P + 2) * 4 + r * M * 8)
+    fq_b, fq_by = bound(fq_bytes, 2.0 * n_live * D)
+    kernels["fused_query"] = dict(
+        name="fused_query", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_query.cu",
+        replaces="src/repro/kernels/fused_query.py:115",
+        max_abs_err=fq_err, ms=fq_ms, plain_ms=fq_plain, bound_ms=fq_b,
+        bound_by=fq_by, library_ms=None)
+
+    ki, ks = ops.fused_query(ids_flat, words_flat, w_rows, fb, meta, m=M,
+                             score="hamming")
+    pi, ps = plain_rows(lambda s: fq_mod.fused_query_plain(
+        ids_flat, words_flat, w_rows[s], fb[s], meta[s], m=M,
+        score="hamming"))
+    if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+        raise AssertionError("fused_query hamming: kernel != plain")
+    fqh_ms = cuda_ms(torch, lambda: ops.fused_query(
+        ids_flat, words_flat, w_rows, fb, meta, m=M, score="hamming"), 10)
+    fqh_plain = cuda_ms(torch, lambda: plain_rows(
+        lambda s: fq_mod.fused_query_plain(
+            ids_flat, words_flat, w_rows[s], fb[s], meta[s], m=M,
+            score="hamming")), 1)
+    fqh_b, _ = bound(n_probe_rows * C * 4 + n_live * W * 4 + r * W * 4
+                     + r * (P + 2) * 4 + r * M * 8)
+    log(f"[kernel] fused_query: r={r} P={P} C={C}; valid probe rows "
+        f"{n_probe_rows}, live slots {n_live}; dot: max score err "
+        f"{fq_err:.3g}, near-tie id swaps {fq_ties}, {fq_ms:.4f} ms, plain "
+        f"{fq_plain:.4f} ms, bound {fq_b:.4f} ms; hamming: exact, "
+        f"{fqh_ms:.4f} ms, plain {fqh_plain:.4f} ms, bound {fqh_b:.4f} ms")
+
+    kh = ops.fused_contains(ids_flat, fb, tgt_meta)
+    ph = fq_mod.fused_contains_plain(ids_flat, fb, tgt_meta)
+    if not torch.equal(kh, ph):
+        raise AssertionError("fused_contains: kernel != plain")
+    fc_ms = cuda_ms(torch, lambda: ops.fused_contains(ids_flat, fb, tgt_meta),
+                    50)
+    fc_plain = cuda_ms(torch, lambda: fq_mod.fused_contains_plain(
+        ids_flat, fb, tgt_meta), 10)
+    fc_b, fc_by = bound(n_probe_rows * C * 4 + r * (P + 2) * 4 + r * 4)
+    log(f"[kernel] fused_contains: exact, {int(kh.sum())} of {r} rows hit; "
+        f"{fc_ms:.4f} ms, plain {fc_plain:.4f} ms, bound {fc_b:.4f} ms")
+    kernels["fused_contains"] = dict(
+        name="fused_contains", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_query.cu",
+        replaces="src/repro/kernels/fused_query.py:195",
+        max_abs_err=0.0, ms=fc_ms, plain_ms=fc_plain, bound_ms=fc_b,
+        bound_by=fc_by, library_ms=None)
+
+    # bucket_topk on the engine's chunks: 32 queries = 32*L (query, table)
+    # rows of P*C candidate lanes each, sorted by id with repeats masked
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import scoring
+
+    bq = 32 * L
+    errs, ties, bt_t, btp_t, bt_bytes = [], 0, [], [], 0
+    for c0 in range(0, 256 * L, bq):
+        sel = slice(c0, c0 + bq)
+        qc = q_rows[sel]
+        probes, pv = plan_mod.shard_local_probes(
+            cfg.topo, flat["local"][sel], flat["mask"][sel], include_near=True)
+        cand = store.ids[flat["table"][sel].long()[:, None], probes.long()]
+        cand = torch.where(pv[..., None], cand, -1).reshape(bq, -1)
+        order, ids_s, dup = scoring._sorted_dup_mask(cand)
+        vecs = corpus.gather(ids_s)
+        valid = (ids_s >= 0) & ~dup
+
+        def plain():  # the wrapper's work on a CPU tensor, on the card
+            return bt_mod.bucket_topk_plain(qc, vecs, bt_mod.pack_valid(valid),
+                                            M)
+
+        ks, ki = ops.bucket_topk(qc, vecs, valid, M)
+        ps, pi = plain()
+        e, t = compare_topk(ki, ks, pi, ps, "bucket_topk")
+        errs.append(e)
+        ties += t
+        bt_t.append(cuda_ms(torch, lambda: ops.bucket_topk(qc, vecs, valid, M),
+                            5))
+        btp_t.append(cuda_ms(torch, plain, 2))
+        vwords = bt_mod.pack_valid(valid)
+        n_valid = int(valid.sum())
+        bt_bytes += n_valid * D * 4 + qc.numel() * 4 + vwords.numel() * 4 \
+            + bq * M * 8
+        kc = vecs.shape[1]
+    n_chunks = len(bt_t)
+    bt_b, bt_by = bound(bt_bytes / n_chunks)
+    log(f"[kernel] bucket_topk: b={bq} rows KC={kc} D={D}; max score err "
+        f"{max(errs):.3g}, near-tie id swaps {ties}; mean over {n_chunks} "
+        f"chunks {np.mean(bt_t):.4f} ms, plain {np.mean(btp_t):.4f} ms, "
+        f"bound {bt_b:.4f} ms")
+    kernels["bucket_topk"] = dict(
+        name="bucket_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/bucket_topk.cu",
+        replaces="src/repro/kernels/bucket_topk.py:66",
+        max_abs_err=max(errs), ms=float(np.mean(bt_t)),
+        plain_ms=float(np.mean(btp_t)), bound_ms=bt_b, bound_by=bt_by,
+        library_ms=None)
+    del vecs, cand, ids_s, valid
+
+    # -- 5-8. the main path's paths, each with launch counts of its own -----
+    by_path = {}
+
+    def counted(path, expect, fn):
+        """Run `fn` with every launch count set to 0 just before and read
+        just after; fail if a kernel of `expect` was not launched."""
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        missing = [n for n in expect if got[n] == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels never launched: {missing}")
+        by_path[path] = got
+        log(f"[launches] {path}: {got}")
+        return out
+
+    # -- 5. runtime search --------------------------------------------------
+    n_rec = 64
+    _, exact_i = exact_topk_dense(corpus, x[qids[0][:n_rec]], M)
+    cells = [("lsh", {}), ("nb", {}), ("cnb", {}),
+             ("cnb", dict(num_probes=4, ranked_probes=True))]
+    for score in ("dot", "hamming"):
+        st = store if score == "dot" else store_h
+        for variant, pkw in cells:
+            rt = IndexRuntime(RuntimeConfig(
+                params=params, variant=variant, m=M, use_kernels=True,
+                score=score, **pkw), device=dev)
+            name = variant + ("" if not pkw else "-p4ranked")
+
+            def batches():
+                rt.search(h, st, q)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = [rt.search(h, st, x[qids[b]])[:2]
+                        for b in range(args.batches)]
+                torch.cuda.synchronize()
+                return outs, (time.perf_counter() - t0) * 1e3 / args.batches
+
+            outs, ms = counted(f"search {score} {name}",
+                               ("simhash", "fused_query"), batches)
+            ids0 = outs[0][0]
+            for o_i, o_s in outs:
+                if o_i.shape != (NQ, M) or not bool(
+                        torch.isfinite(o_s[:, 0]).all()):
+                    raise AssertionError(f"{score}/{variant}: bad results")
+            self_hit = float(torch.cat([
+                (o[0][:, 0] == qids[b]).float() for b, o in enumerate(outs)
+            ]).mean())
+            got = ids0[:n_rec].cpu().numpy()
+            want = exact_i.cpu().numpy()
+            recall = np.mean([len(set(got[i]) & set(want[i])) / M
+                              for i in range(n_rec)])
+            log(f"[search] {score:7s} {name:12s}: {ms:.3f} ms per batch of "
+                f"{NQ}, {NQ / ms * 1e3:.0f} queries/s, self-hit@1 "
+                f"{self_hit:.4f}, recall@10 {recall:.4f} ({n_rec} queries)")
+
+    # -- 6. contains --------------------------------------------------------
+    rt = IndexRuntime(RuntimeConfig(params=params, variant="cnb", m=M,
+                                    use_kernels=True), device=dev)
+    staged = IndexRuntime(RuntimeConfig(params=params, variant="cnb", m=M,
+                                        fused="off"), device=dev)
+    hits, _ = counted("contains", ("simhash", "fused_contains"),
+                      lambda: rt.contains(h, store, q, qids[0]))
+    want, _ = staged.contains(h, store, q, qids[0])
+    if not torch.equal(hits, want):
+        raise AssertionError("contains: fused kernel != staged plain path")
+    log(f"[contains] {int(hits.sum())} of {NQ} queries find their own id; "
+        f"equal to the staged path")
+
+    # -- 7. engine ----------------------------------------------------------
+    eng = LshEngine(params, h, ids_only, corpus, None,
+                    EngineConfig(variant="cnb", use_kernels=True), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = counted("engine search", ("simhash", "bucket_topk"),
+                  lambda: eng.search(q[:256], m=M))
+    ms = (time.perf_counter() - t0) * 1e3
+    rt_ids, rt_sc, _ = rt.search(h, store, q[:256])
+    e_err, e_ties = compare_topk(
+        torch.from_numpy(res.ids), torch.from_numpy(res.scores),
+        rt_ids, rt_sc, "engine vs runtime payload path")
+    e_hits = counted("engine contains", ("simhash", "fused_contains"),
+                     lambda: eng.contains(q[:256],
+                                          qids[0][:256].cpu().numpy()))
+    if not np.array_equal(e_hits, hits[:256].cpu().numpy()):
+        raise AssertionError("engine contains != runtime contains")
+    log(f"[engine] 256 queries in {ms:.1f} ms; ids equal to the runtime "
+        f"payload path (near-tie swaps {e_ties}, max score err "
+        f"{e_err:.3g}); contains equal")
+
+    # -- 8. churn -----------------------------------------------------------
+    n_re = min(16384, N)
+    re_ids = torch.from_numpy(
+        rng.choice(N, size=n_re, replace=False).astype(np.int64)).to(dev)
+    noise = torch.from_numpy(
+        rng.standard_normal((len(re_ids), D), dtype=np.float32)).to(dev)
+    moved = x[re_ids] + 0.3 * noise
+    moved /= torch.linalg.vector_norm(moved, dim=1, keepdim=True)
+    gen0 = int(store.generation)
+
+    def churn():
+        st1 = rt.insert(h, store, moved, re_ids.to(torch.int32), 1)
+        st2 = rt.expire(st1, now=1, ttl=0)
+        return st1, st2, rt.search(h, st2, moved[:NQ])[:2]
+
+    st1, st2, (ids_c, sc_c) = counted(
+        "churn", ("simhash", "fused_query"), churn)
+    if int(st1.generation) != gen0 + L or int(st2.generation) != gen0 + L + 1:
+        raise AssertionError(
+            f"churn: generation {gen0} -> {int(st1.generation)} -> "
+            f"{int(st2.generation)}, expected +{L} then +1")
+    if int((st2.ids >= 0).sum()) > L * len(re_ids):
+        raise AssertionError("churn: expire left entries older than the TTL")
+    churn_hit = float((ids_c[:, 0] == re_ids[:NQ]).float().mean())
+    log(f"[churn] insert {len(re_ids)} re-announces + expire(ttl=0): "
+        f"generation {gen0} -> {int(st1.generation)} -> "
+        f"{int(st2.generation)}; {int((st2.ids >= 0).sum())} live slots; "
+        f"self-hit@1 of moved vectors {churn_hit:.4f}")
+    del st1, st2
+
+    # -- 9. kernels line ----------------------------------------------------
+    for name, k in kernels.items():
+        k["launches"] = sum(got[name] for got in by_path.values())
+        k["launches_by_path"] = {p: got[name] for p, got in by_path.items()}
+    missing = [n for n, k in kernels.items() if k["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    log(f"[kernels] launches in phases 5-8: "
+        f"{ {n: k['launches'] for n, k in kernels.items()} }")
+    log(smi)
+    log(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,152 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
+where `torch.cuda.is_available()` is false.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.core import packed, scoring
+from repro_torch.kernels import bucket_topk as bt
+from repro_torch.kernels import fused_query as fq
+from repro_torch.kernels import ops
+from repro_torch.kernels import simhash as sh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _store(dev, seed, rows=40, c=96, dw=128, score="dot"):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(-1, 300, (rows, c), generator=g, dtype=torch.int32)
+    ids[3] = -1
+    ids[1, 0] = ids[2, 5] = 7  # a duplicate id across bucket rows
+    if score == "dot":  # unit rows, as the index stores them
+        pay = torch.nn.functional.normalize(
+            torch.randn((rows, c, dw), generator=g), dim=-1)
+    else:
+        pay = torch.randint(-2**31, 2**31, (rows, c, dw), generator=g,
+                            dtype=torch.int64).to(torch.int32)
+    return ids.to(dev), pay.to(dev), g
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("n,d,k,L,offset", [
+    (1, 128, 12, 4, 0), (1000, 128, 12, 4, 0), (77, 40, 30, 3, 0),
+    (300, 37, 7, 2, 0),   # d % 4 != 0: scalar staging, padded columns
+    (300, 128, 12, 4, 1),  # x not 16-byte aligned: scalar staging
+])
+def test_simhash_kernel_matches_plain(dev, n, d, k, L, offset, packed_out):
+    g = torch.Generator().manual_seed(n)
+    flat = torch.randn((n * d + offset,), generator=g).to(dev)
+    x = flat[offset:].view(n, d)
+    h = torch.randn((L, k, d), generator=g).to(dev)
+    got = ops.simhash(x, h, packed=packed_out)
+    want = sh.simhash_plain(x, h, packed=packed_out)
+    flips = torch.bitwise_xor(got, want)
+    if packed_out:
+        flips = packed.unpack_codes(flips, k, L)
+    proj = torch.einsum("nd,lkd->nlk", x.double(), h.double())
+    bits = (flips.long()[..., None] >> torch.arange(k, device=dev)) & 1 > 0
+    band = 1e-5 * x.double().norm(dim=1)[:, None, None] \
+        * h.double().norm(dim=2)[None]
+    assert not bool((bits & (proj.abs() > band)).any())
+
+
+@pytest.mark.parametrize("score", ["dot", "hamming"])
+@pytest.mark.parametrize("m", [1, 10, 700])
+def test_fused_query_kernel_matches_plain(dev, score, m):
+    ids, pay, g = _store(dev, m, dw=128 if score == "dot" else 2, score=score)
+    r, p = 64, 13
+    fb = torch.randint(0, ids.shape[0], (r, p), generator=g,
+                       dtype=torch.int32).to(dev)
+    pw = torch.randint(0, 1 << p, (r,), generator=g, dtype=torch.int32)
+    pw[0] = 0
+    excl = torch.where(torch.arange(r) % 2 == 0, -1, 7).to(torch.int32)
+    meta = torch.stack([pw, excl], dim=1).to(dev)
+    q = pay[fb[:, 0].long(), 0].contiguous()
+    gi, gs = ops.fused_query(ids, pay, q, fb, meta, m=m, score=score)
+    wi, ws = fq.fused_query_plain(ids, pay, q, fb, meta, m=m, score=score)
+    if score == "hamming":
+        assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    else:
+        assert torch.equal(gi, wi)
+        torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+def test_fused_contains_kernel_matches_plain(dev):
+    ids, _, g = _store(dev, 3)
+    fb = torch.randint(0, ids.shape[0], (300, 5), generator=g,
+                       dtype=torch.int32).to(dev)
+    pw = torch.randint(0, 32, (300,), generator=g, dtype=torch.int32)
+    tgt = torch.randint(-1, 300, (300,), generator=g, dtype=torch.int32)
+    meta = torch.stack([pw, tgt], dim=1).to(dev)
+    assert torch.equal(ops.fused_contains(ids, fb, meta),
+                       fq.fused_contains_plain(ids, fb, meta))
+
+
+@pytest.mark.parametrize("kc,m", [(33, 50), (6656, 10)])
+def test_bucket_topk_kernel_matches_plain(dev, kc, m):
+    g = torch.Generator().manual_seed(kc)
+    q = torch.nn.functional.normalize(
+        torch.randn((16, 128), generator=g), dim=-1).to(dev)
+    cand = torch.nn.functional.normalize(
+        torch.randn((16, kc, 128), generator=g), dim=-1).to(dev)
+    cand[:, 1::3] = cand[:, :1]  # exactly equal scores: lowest index first
+    valid = (torch.rand((16, kc), generator=g) < 0.6).to(dev)
+    valid[0] = False
+    gs, gi = ops.bucket_topk(q, cand, valid, m)
+    ws, wi = bt.bucket_topk_plain(q, cand, bt.pack_valid(valid), m)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("op", ["fused_query", "bucket_topk"])
+def test_shapes_beyond_shared_memory_raise(dev, op):
+    """A block holds every candidate's score in shared memory; shapes that
+    would overflow it raise ValueError, and the next launch still works."""
+    if op == "fused_query":
+        ids = torch.zeros((2, 2048), dtype=torch.int32, device=dev)
+        words = torch.zeros((2, 2048, 1), dtype=torch.int32, device=dev)
+        fb = torch.zeros((1, 31), dtype=torch.int32, device=dev)
+        meta = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.fused_query(ids, words, words[0, :1, :], fb, meta, m=1,
+                            score="hamming")
+        got = ops.fused_query(ids[:, :8].contiguous(),
+                              words[:, :8].contiguous(), words[0, :1, :],
+                              fb, meta, m=1, score="hamming")
+        assert got[0].shape == (1, 1)
+    else:
+        q = torch.zeros((1, 128), device=dev)
+        cand = torch.zeros((1, 60000, 128), device=dev)
+        valid = torch.ones((1, 60000), dtype=torch.bool, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.bucket_topk(q, cand, valid, 1)
+        got = ops.bucket_topk(q, cand[:, :64].contiguous(), valid[:, :64], 1)
+        assert got[1].tolist() == [[0]]
+
+
+def test_wrappers_count_launches_and_hamming_staged_raises(dev):
+    ops.reset_launches()
+    x = torch.randn((8, 16), device=dev)
+    ops.simhash(x, torch.randn((2, 3, 16), device=dev))
+    assert ops.LAUNCHES["simhash"] == 1
+    w = torch.zeros((2, 4, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="hamming_words"):
+        scoring.score_topk(w[:, 0], torch.zeros((2, 4), dtype=torch.int32,
+                                                device=dev), w, 2,
+                           use_kernels=True, score="hamming")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.simhash(x.T.contiguous().T, torch.randn((2, 3, 16), device=dev))
