@@ -133,7 +133,8 @@ class LshEngine:
         parts = [
             runtime_mod.search_kernel(
                 cfg, runtime_mod.LOCAL, m, self.hyperplanes, self.store.ids,
-                None, qc[i], corpus=self.corpus, exclude=ec[i])[:2]
+                None, None, None, qc[i], corpus=self.corpus,
+                exclude=ec[i])[:2]
             for i in range(qc.shape[0])
         ]
         out_i = torch.cat([p[0] for p in parts])[:nq].cpu().numpy()
@@ -155,7 +156,7 @@ class LshEngine:
         hits = [
             runtime_mod.contains_kernel(
                 self.runtime.cfg, runtime_mod.LOCAL, self.hyperplanes,
-                self.store.ids, qc[i], tc[i])[0]
+                self.store.ids, None, qc[i], tc[i])[0]
             for i in range(qc.shape[0])
         ]
         return torch.cat(hits)[:nq].cpu().numpy()

@@ -4,7 +4,9 @@ Two interchangeable implementations:
   * reference — einsum (or packed hamming) + `dedupe_topk`;
   * kernel    — candidates sorted by id (so the kernel's "lowest index"
     tie-break is the reference's "lowest id"), repeats masked invalid,
-    and the `bucket_topk` kernel scores and selects the top m.
+    and the `bucket_topk` kernel scores and selects the top m; under
+    `score="hamming"` the `hamming_words` kernel scores and
+    `dedupe_topk` selects.
 
 Ties: `torch.topk` does not order equal values by position, and
 `torch.argsort` is unstable by default, while the reference relies on
@@ -68,16 +70,14 @@ def score_topk(
 
     `score="dot"` takes f32 payload vectors; `score="hamming"` takes
     packed sketch words on both sides and scores by negated popcount
-    distance.  Returns (ids int32 [b, m], scores f32 [b, m]).
+    distance (the `hamming_words` kernel with `use_kernels`).  Returns
+    (ids int32 [b, m], scores f32 [b, m]).
     """
     if score == "hamming":
         if use_kernels:
-            if cand_vecs.is_cuda:
-                raise NotImplementedError(
-                    "hamming_words kernel not yet ported")
-            from repro_torch.kernels import ref
+            from repro_torch.kernels import ops
 
-            h = ref.hamming_words_ref(q, cand_vecs)
+            h = ops.hamming(q.contiguous(), cand_vecs.contiguous())
         else:
             from repro_torch.core.packed import hamming_words
 

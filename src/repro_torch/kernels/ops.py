@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.kernels import bucket_topk as _bt
 from repro_torch.kernels import fused_query as _fq
+from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import simhash as _sh
 
 # kernel launches since the last `reset_launches()` (CUDA tensors only)
 LAUNCHES = {"simhash": 0, "fused_query": 0, "fused_contains": 0,
-            "bucket_topk": 0}
+            "bucket_topk": 0, "hamming_words": 0, "hamming": 0}
 
 
 def reset_launches() -> None:
@@ -89,6 +90,35 @@ def bucket_topk(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
     _check_dtype("bucket_topk", "cand", cand, torch.float32)
     out = _bt.bucket_topk_cuda(q, cand, vwords, m)
     LAUNCHES["bucket_topk"] += 1
+    return out
+
+
+def hamming(codes: torch.Tensor, cand_codes: torch.Tensor) -> torch.Tensor:
+    """Hamming distances int32 [n, kc].
+
+    Single-word codes ([n] vs [n, kc]) match `ref.hamming_ref`; packed
+    rows ([n, W] vs [n, kc, W], the `core.packed` layout, the staged
+    scorer of `score="hamming"`) match `ref.hamming_words_ref`.  Words
+    are int32 bit patterns."""
+    words = cand_codes.dim() == 3
+    op = "hamming_words" if words else "hamming"
+    lead = cand_codes.shape[:1] + cand_codes.shape[2:]
+    if cand_codes.dim() not in (2, 3) or codes.shape != lead:
+        raise ValueError(
+            f"{op}: codes [n] and cand [n, kc], or codes [n, W] and cand "
+            f"[n, kc, W] expected, got {tuple(codes.shape)} and "
+            f"{tuple(cand_codes.shape)}")
+    if not _on_card(op, codes, cand_codes):
+        plain = _hm.hamming_words_plain if words else _hm.hamming_plain
+        return plain(codes, cand_codes)
+    _check_dtype(op, "codes", codes, torch.int32)
+    _check_dtype(op, "cand_codes", cand_codes, torch.int32)
+    if cand_codes.numel() == 0:  # nothing to launch
+        return torch.empty(cand_codes.shape[:2], dtype=torch.int32,
+                           device=cand_codes.device)
+    out = (_hm.hamming_words_cuda if words else _hm.hamming_cuda)(
+        codes, cand_codes)
+    LAUNCHES[op] += 1
     return out
 
 

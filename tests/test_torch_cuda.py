@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import packed, scoring
 from repro_torch.kernels import bucket_topk as bt
 from repro_torch.kernels import fused_query as fq
+from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import ops
 from repro_torch.kernels import simhash as sh
 
@@ -138,15 +139,45 @@ def test_shapes_beyond_shared_memory_raise(dev, op):
         assert got[1].tolist() == [[0]]
 
 
-def test_wrappers_count_launches_and_hamming_staged_raises(dev):
+def test_wrappers_count_launches_and_staged_hamming_runs(dev):
     ops.reset_launches()
     x = torch.randn((8, 16), device=dev)
     ops.simhash(x, torch.randn((2, 3, 16), device=dev))
     assert ops.LAUNCHES["simhash"] == 1
     w = torch.zeros((2, 4, 1), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="hamming_words"):
-        scoring.score_topk(w[:, 0], torch.zeros((2, 4), dtype=torch.int32,
-                                                device=dev), w, 2,
-                           use_kernels=True, score="hamming")
+    ids, _ = scoring.score_topk(w[:, 0], torch.zeros((2, 4), dtype=torch.int32,
+                                                     device=dev), w, 2,
+                                use_kernels=True, score="hamming")
+    assert ops.LAUNCHES["hamming_words"] == 1 and ids.tolist() == [[0, -1]] * 2
     with pytest.raises(ValueError, match="contiguous"):
         ops.simhash(x.T.contiguous().T, torch.randn((2, 3, 16), device=dev))
+    with pytest.raises(TypeError, match="int32"):
+        ops.hamming(w[:, 0].long(), w.long())
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5])
+@pytest.mark.parametrize("n,kc", [(1, 1), (37, 300), (4096, 2048)])
+def test_hamming_words_kernel_matches_plain(dev, n, kc, w):
+    g = torch.Generator().manual_seed(n + kc + w)
+    codes = torch.randint(-2**31, 2**31, (n, w), generator=g,
+                          dtype=torch.int64).to(torch.int32).to(dev)
+    cand = torch.randint(-2**31, 2**31, (n, kc, w), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    cand[0, 0] = codes[0]
+    got = ops.hamming(codes, cand)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hm.hamming_words_plain(codes, cand))
+    assert int(got[0, 0]) == 0
+
+
+@pytest.mark.parametrize("n,kc", [(1, 1), (4096, 6656), (3, 0)])
+def test_hamming_kernel_matches_plain(dev, n, kc):
+    g = torch.Generator().manual_seed(n + kc)
+    codes = torch.randint(-2**31, 2**31, (n,), generator=g,
+                          dtype=torch.int64).to(torch.int32).to(dev)
+    cand = torch.randint(-2**31, 2**31, (n, kc), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    got = ops.hamming(codes, cand)
+    torch.cuda.synchronize()
+    assert got.shape == (n, kc)
+    assert torch.equal(got, hm.hamming_plain(codes, cand))

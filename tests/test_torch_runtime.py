@@ -234,16 +234,21 @@ def test_fused_on_refuses_corpus_and_ids_only(world):
 
 
 def test_mesh_runtime_not_ported(world):
+    """The mesh runs (tests/test_torch_mesh.py); what is not ported yet is
+    replication, and a mesh-sized config still needs its mesh."""
     p = world["params"]
-    with pytest.raises(NotImplementedError, match="mesh runtime"):
-        RuntimeConfig(params=p, n_nodes=2)
-    with pytest.raises(NotImplementedError, match="mesh runtime"):
-        IndexRuntime(RuntimeConfig(params=p), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh runtime"):
-        truntime.search_kernel(RuntimeConfig(params=p),
-                               type("Routed", (), {"routed": True})(), M,
-                               world["h"], world["st"].ids, None,
-                               torch.zeros(1, D))
+    with pytest.raises(NotImplementedError, match="replication > 1"):
+        RuntimeConfig(params=p, n_nodes=2, replication=2)
+    with pytest.raises(ValueError, match="replication must be >= 1"):
+        RuntimeConfig(params=p, replication=0)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        IndexRuntime(RuntimeConfig(params=p, n_nodes=2), device="cpu")
+    with pytest.raises(ValueError, match="1-node only"):
+        truntime.search_kernel(
+            RuntimeConfig(params=p),
+            truntime.MeshCollectives(n=1, device=torch.device("cpu")), M,
+            world["h"], world["st"].ids, None, None, None,
+            torch.zeros(1, 1, D), exclude=torch.zeros(1, dtype=torch.int32))
 
 
 def test_entry_points_need_card_or_cpu(world):
