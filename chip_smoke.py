@@ -14,12 +14,17 @@ failure:
   3. world: corpus, hyperplanes, corpus codes through the simhash kernel,
      `build_store_host` at C = 512, and the packed (hamming) store;
   4. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with times: simhash, fused_query,
-     fused_contains, bucket_topk, and hamming_words at the CNB cache
-     stage's shape of the 16-node mesh, hamming at [4096] x [4096, 6656];
+     shapes the main path gives it, with times: simhash, fused_query
+     (dot, also with the score buffer sized by a read-back of the pair
+     count, and hamming, plus the edge cases of `tests/torch_fused_cases.
+     py` at m = 1, 10, 700), fused_contains, bucket_topk,
+     and hamming_words at the CNB cache stage's shape of the 16-node
+     mesh, hamming at [4096] x [4096, 6656];
   5. runtime search through `IndexRuntime(use_kernels=True)`, dot and
      hamming, for lsh / nb / cnb and ranked cnb: ms per batch, queries/s,
-     self-hit@1 and recall@10 against brute-force top-10; 5b. the staged
+     self-hit@1 and recall@10 against brute-force top-10; each cell
+     holds fused_query against its plain version on the inputs it
+     records from one batch; 5b. the staged
      hamming cnb cell (`fused="off"`), equal to the fused one exactly;
   6. contains, equal to the staged plain path;
   7. the engine (`LshEngine(use_kernels=True)`), ids equal to the runtime's;
@@ -34,9 +39,10 @@ failure:
      CNB cache refresh.  Per cell: ms per batch, queries/s, the router's
      counters, the wire bytes of `estimate_query_bytes`, and a
      torch.profiler trace of one batch (device time by kernel, busy share).
-     Each cell through the cache or NB stage also holds bucket_topk or
-     hamming_words against its plain version on the very inputs that
-     stage gives it, recorded from one batch, with times;
+     Each cell holds its owner stage's fused_query, and, through the
+     cache or NB stage, bucket_topk or hamming_words, against the plain
+     version on the very inputs the path gives them, recorded from one
+     batch, with times;
  10. the kernels line.  Each path of phases 5-9 runs with the launch
      counts set to 0 just before it and read just after, and fails
      unless each kernel it should go through was launched; a kernel's
@@ -181,6 +187,8 @@ def main() -> int:
     from repro_torch.kernels import fused_query as fq_mod
     from repro_torch.kernels import hamming as hm_mod
     from repro_torch.kernels import simhash as sh_mod
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fused_cases import edge_case_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -323,9 +331,26 @@ def main() -> int:
     n_live = int(occ.reshape(-1)[rows_read].sum())
     chunk = 512
 
-    def plain_rows(fn):
-        outs = [fn(slice(s, s + chunk)) for s in range(0, r, chunk)]
+    def plain_rows(fn, n_rows=r):
+        outs = [fn(slice(s, s + chunk)) for s in range(0, n_rows, chunk)]
         return tuple(torch.cat(t) for t in zip(*outs))
+
+    def fused_plain(a, kw):
+        """fused_query_plain on the rows of `a`, in row chunks."""
+        ids_a, pay_a, q_a, fb_a, meta_a = a
+        return plain_rows(lambda s: fq_mod.fused_query_plain(
+            ids_a, pay_a, q_a[s], fb_a[s], meta_a[s], **kw), fb_a.shape[0])
+
+    def hold_fused(a, kw, what):
+        """Kernel against plain: hamming bit for bit, dot through
+        compare_topk.  Returns (max score error, near-tie id swaps)."""
+        ki, ks = ops.fused_query(*a, **kw)
+        pi, ps = fused_plain(a, kw)
+        if kw.get("score", "dot") == "hamming":
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                raise AssertionError(f"{what}: kernel != plain")
+            return 0.0, 0
+        return compare_topk(ki, ks, pi, ps, what)
 
     ki, ks = ops.fused_query(ids_flat, pay_flat, q_rows, fb, meta, m=M)
     pi, ps = plain_rows(lambda s: fq_mod.fused_query_plain(
@@ -333,18 +358,25 @@ def main() -> int:
     fq_err, fq_ties = compare_topk(ki, ks, pi, ps, "fused_query dot")
     fq_ms = cuda_ms(torch, lambda: ops.fused_query(
         ids_flat, pay_flat, q_rows, fb, meta, m=M), 10)
+    # the same call with the score buffer sized by the pair count read
+    # back from the card, the path of batches whose r*P-pair buffer would
+    # exceed fused_query.SCORE_BUFFER_BYTES
+    budget, fq_mod.SCORE_BUFFER_BYTES = fq_mod.SCORE_BUFFER_BYTES, 0
+    try:
+        ki, ks = ops.fused_query(ids_flat, pay_flat, q_rows, fb, meta, m=M)
+        rb_err, rb_ties = compare_topk(ki, ks, pi, ps,
+                                       "fused_query dot, read-back")
+        fq_err = max(fq_err, rb_err)
+        fqr_ms = cuda_ms(torch, lambda: ops.fused_query(
+            ids_flat, pay_flat, q_rows, fb, meta, m=M), 10)
+    finally:
+        fq_mod.SCORE_BUFFER_BYTES = budget
     fq_plain = cuda_ms(torch, lambda: plain_rows(
         lambda s: fq_mod.fused_query_plain(
             ids_flat, pay_flat, q_rows[s], fb[s], meta[s], m=M)), 1)
     fq_bytes = (n_rows_read * C * 4 + n_live * D * 4 + r * D * 4
                 + r * (P + 2) * 4 + r * M * 8)
     fq_b, fq_by = bound(fq_bytes, 2.0 * n_live * D)
-    kernels["fused_query"] = dict(
-        name="fused_query", route="cuda",
-        source="src/repro_torch/kernels/csrc/fused_query.cu",
-        replaces="src/repro/kernels/fused_query.py:115",
-        max_abs_err=fq_err, ms=fq_ms, plain_ms=fq_plain, bound_ms=fq_b,
-        bound_by=fq_by, library_ms=None)
 
     ki, ks = ops.fused_query(ids_flat, words_flat, w_rows, fb, meta, m=M,
                              score="hamming")
@@ -364,9 +396,38 @@ def main() -> int:
     log(f"[kernel] fused_query: r={r} P={P} C={C}; valid probe rows "
         f"{n_probe_rows} over {n_rows_read} distinct bucket rows holding "
         f"{n_live} live slots; dot: max score err "
-        f"{fq_err:.3g}, near-tie id swaps {fq_ties}, {fq_ms:.4f} ms, plain "
-        f"{fq_plain:.4f} ms, bound {fq_b:.4f} ms; hamming: exact, "
+        f"{fq_err:.3g}, near-tie id swaps {fq_ties}, {fq_ms:.4f} ms "
+        f"({fqr_ms:.4f} ms with the pair count read back, near-tie swaps "
+        f"{rb_ties}), plain {fq_plain:.4f} ms, bound {fq_b:.4f} ms; "
+        f"hamming: exact, "
         f"{fqh_ms:.4f} ms, plain {fqh_plain:.4f} ms, bound {fqh_b:.4f} ms")
+    # where a call's device time goes: grouping glue, score, select
+    profile_batch(torch, "fused_query dot", lambda: ops.fused_query(
+        ids_flat, pay_flat, q_rows, fb, meta, m=M))
+    profile_batch(torch, "fused_query hamming", lambda: ops.fused_query(
+        ids_flat, words_flat, w_rows, fb, meta, m=M, score="hamming"))
+    # the edge cases: a later copy of an id scoring higher (once, and 32
+    # times over, which sends the selection to its hash), a row with no
+    # valid probe, a bucket probed twice, an exclude id present, exact
+    # ties, m above the live count, 40 rows on one bucket
+    for score in ("dot", "hamming"):
+        edge = edge_case_rows(score, device=dev)
+        for m_edge in (1, M, 700):
+            e_err, e_ties = hold_fused(edge, dict(m=m_edge, score=score),
+                                       f"fused_query {score} edge cases "
+                                       f"m={m_edge}")
+            fq_err = max(fq_err, e_err)
+            log(f"[kernel] fused_query edge cases, {score}, m={m_edge}: "
+                f"equal to plain (max score err {e_err:.3g}, near-tie id "
+                f"swaps {e_ties})")
+    kernels["fused_query"] = dict(
+        name="fused_query", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_query.cu",
+        replaces="src/repro/kernels/fused_query.py:115",
+        max_abs_err=fq_err, ms=fq_ms, plain_ms=fq_plain, bound_ms=fq_b,
+        bound_by=fq_by, library_ms=None, read_back_ms=fqr_ms,
+        hamming_ms=fqh_ms, hamming_plain_ms=fqh_plain,
+        hamming_bound_ms=fqh_b)
 
     kh = ops.fused_contains(ids_flat, fb, tgt_meta)
     ph = fq_mod.fused_contains_plain(ids_flat, fb, tgt_meta)
@@ -484,6 +545,72 @@ def main() -> int:
         bound_by=h1_by, library_ms=None)
     del cand_ids, sq, sc1, got
 
+    def recorded_inputs(fn, names):
+        """Run `fn` once with the wrappers `names` of `ops` recording the
+        arguments of their first call at each shape: {(name, shapes,
+        keywords): (args, kwargs)}.  The wrappers are restored before this
+        returns."""
+        seen = {}
+        real = {n: getattr(ops, n) for n in names}
+
+        def recorder(name):
+            def call(*a, **kw):
+                key = (name, tuple(tuple(t.shape) for t in a
+                                   if torch.is_tensor(t)),
+                       tuple(sorted(kw.items())))
+                seen.setdefault(key, (a, kw))
+                return real[name](*a, **kw)
+            return call
+
+        for name in real:
+            setattr(ops, name, recorder(name))
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            for name, f in real.items():
+                setattr(ops, name, f)
+        return seen
+
+    def hold_at_path_shapes(path, fn, names):
+        """Hold the kernels behind the wrappers `names` against their plain
+        versions on the very inputs the path gives them (one batch of
+        `fn`): dot to TIE with near-tie id swaps allowed, hamming
+        exactly; fused_query's plain version runs in row chunks."""
+        for (name, shapes, _), (a, kw) in recorded_inputs(fn, names).items():
+            if name == "fused_query":
+                err, ties = hold_fused(a, kw, f"fused_query on {path}")
+                k_ms = cuda_ms(torch, lambda: ops.fused_query(*a, **kw), 5)
+                p_ms = cuda_ms(torch, lambda: fused_plain(a, kw), 1)
+                shapes = shapes + ((kw["m"], kw.get("score", "dot")),)
+            elif name == "bucket_topk":
+                qa, cand, valid, m = a
+                ks, ki = ops.bucket_topk(qa, cand, valid, m)
+                ps, pi = bt_mod.bucket_topk_plain(
+                    qa, cand, bt_mod.pack_valid(valid), m)
+                err, ties = compare_topk(ki, ks, pi, ps,
+                                         f"bucket_topk on {path}")
+                k_ms = cuda_ms(torch, lambda: ops.bucket_topk(*a), 5)
+                p_ms = cuda_ms(torch, lambda: bt_mod.bucket_topk_plain(
+                    qa, cand, bt_mod.pack_valid(valid), m), 1)
+            else:
+                name = "hamming_words" if a[1].dim() == 3 else "hamming"
+                plain = (hm_mod.hamming_words_plain if name == "hamming_words"
+                         else hm_mod.hamming_plain)
+                if not torch.equal(ops.hamming(*a), plain(*a)):
+                    raise AssertionError(f"{name} on {path}: kernel != plain")
+                err, ties = 0.0, 0
+                k_ms = cuda_ms(torch, lambda: ops.hamming(*a), 5)
+                p_ms = cuda_ms(torch, lambda: plain(*a), 1)
+            k = kernels[name]
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            k.setdefault("path_shapes", []).append(dict(
+                path=path, shapes=[list(s) for s in shapes],
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms))
+            log(f"[kernel] {name} at {path} {list(shapes)}: equal to plain "
+                f"(max score err {err:.3g}, near-tie id swaps {ties}); "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
     # -- 5-9. the main path's paths, each with launch counts of its own -----
     by_path = {}
     expected = set()
@@ -530,6 +657,8 @@ def main() -> int:
             outs, ms = counted(f"search {score} {name}",
                                ("simhash", "fused_query"),
                                lambda: timed_batches(rt, st))
+            hold_at_path_shapes(f"search {score} {name}", lambda: rt.search(
+                h, st, x[qids[0]]), ("fused_query",))
             if not pkw:
                 one_node[(score, variant)] = outs[0][:2]
             ids0 = outs[0][0]
@@ -555,6 +684,8 @@ def main() -> int:
     outs, ms = counted("search hamming cnb staged",
                        ("simhash", "hamming_words"),
                        lambda: timed_batches(rt, store_h))
+    hold_at_path_shapes("search hamming cnb staged", lambda: rt.search(
+        h, store_h, x[qids[0]]), ("hamming",))
     f_ids, f_sc = one_node[("hamming", "cnb")]
     if not (torch.equal(outs[0][0], f_ids) and torch.equal(outs[0][1], f_sc)):
         raise AssertionError("staged hamming cnb != fused hamming cnb")
@@ -652,65 +783,6 @@ def main() -> int:
             f"node, {per_node * n} in all")
         return st, cache
 
-    def recorded_inputs(fn):
-        """Run `fn` once with the staged kernels' wrappers recording the
-        arguments of their first call at each shape: {(name, shapes):
-        args}.  The wrappers are restored before this returns."""
-        seen = {}
-        real = {n: getattr(ops, n) for n in ("bucket_topk", "hamming")}
-
-        def recorder(name):
-            def call(*a):
-                key = (name,) + tuple(tuple(t.shape) for t in a
-                                      if torch.is_tensor(t))
-                seen.setdefault(key, a)
-                return real[name](*a)
-            return call
-
-        for name in real:
-            setattr(ops, name, recorder(name))
-        try:
-            fn()
-            torch.cuda.synchronize()
-        finally:
-            for name, f in real.items():
-                setattr(ops, name, f)
-        return seen
-
-    def hold_at_path_shapes(path, fn):
-        """Hold bucket_topk and hamming against their plain versions on
-        the very inputs the path gives them (one batch of `fn`): dot to
-        TIE with near-tie id swaps allowed, hamming exactly."""
-        for key, a in recorded_inputs(fn).items():
-            name, shapes = key[0], key[1:]
-            if name == "bucket_topk":
-                qa, cand, valid, m = a
-                ks, ki = ops.bucket_topk(qa, cand, valid, m)
-                ps, pi = bt_mod.bucket_topk_plain(
-                    qa, cand, bt_mod.pack_valid(valid), m)
-                err, ties = compare_topk(ki, ks, pi, ps,
-                                         f"bucket_topk on {path}")
-                k_ms = cuda_ms(torch, lambda: ops.bucket_topk(*a), 5)
-                p_ms = cuda_ms(torch, lambda: bt_mod.bucket_topk_plain(
-                    qa, cand, bt_mod.pack_valid(valid), m), 1)
-            else:
-                name = "hamming_words" if a[1].dim() == 3 else "hamming"
-                plain = (hm_mod.hamming_words_plain if name == "hamming_words"
-                         else hm_mod.hamming_plain)
-                if not torch.equal(ops.hamming(*a), plain(*a)):
-                    raise AssertionError(f"{name} on {path}: kernel != plain")
-                err, ties = 0.0, 0
-                k_ms = cuda_ms(torch, lambda: ops.hamming(*a), 5)
-                p_ms = cuda_ms(torch, lambda: plain(*a), 1)
-            k = kernels[name]
-            k["max_abs_err"] = max(k["max_abs_err"], err)
-            k.setdefault("path_shapes", []).append(dict(
-                path=path, shapes=[list(s) for s in shapes],
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms))
-            log(f"[kernel] {name} at {path} {list(shapes)}: equal to plain "
-                f"(max score err {err:.3g}, near-tie id swaps {ties}); "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
-
     def mesh_cell(n, score, variant, st, cache, nq, expect, **kw):
         rt = mesh_runtime(n, score, variant, **kw)
         c = cache if variant == "cnb" else None
@@ -720,9 +792,9 @@ def main() -> int:
                            lambda: timed_batches(rt, st, nq, cache=c))
         stats = outs[0][2].host()
         wire = dist_mod.estimate_query_bytes(rt.cfg, nq, D, rt.n_devices)
-        if {"bucket_topk", "hamming_words"} & set(expect):
-            hold_at_path_shapes(path, lambda: rt.search(
-                h, st, x[qids[0][:nq]], cache=c))
+        hold_at_path_shapes(path, lambda: rt.search(
+            h, st, x[qids[0][:nq]], cache=c),
+            ("bucket_topk", "hamming", "fused_query"))
         profile_batch(torch, path, lambda: rt.search(
             h, st, x[qids[0][:nq]], cache=c))
         log(f"[cell] {path}: {ms:.3f} ms per batch of {nq}, "
@@ -738,9 +810,9 @@ def main() -> int:
                              ("cnb", "alltoall"), ("cnb", "allgather")):
         expect = ("fused_query",) + (() if variant == "lsh"
                                      else ("hamming_words",))
-        (ids_m, sc_m, _), stats = mesh_cell(16, "hamming", variant, st16,
-                                            cache16, NQ, expect,
-                                            routing=routing)
+        (ids_m, sc_m, _), stats = mesh_cell(
+            16, "hamming", variant, st16, cache16, NQ, expect,
+            routing=routing)
         want_i, want_s = one_node[("hamming", variant)]
         if stats["dropped_probes"] != 0:
             raise AssertionError(f"mesh {variant} {routing}: probes dropped")

@@ -99,26 +99,6 @@ __device__ __forceinline__ void block_best(float& s, int& id, int& pos,
   __syncthreads();
 }
 
-// Block-wide minimum of an int.
-__device__ __forceinline__ int block_min(int v, Scratch& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(FULL_MASK, v, off));
-  if (lane == 0) sh.pos[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? sh.pos[lane] : INT_MAX_;
-    for (int off = 16; off > 0; off >>= 1)
-      v = min(v, __shfl_xor_sync(FULL_MASK, v, off));
-    if (lane == 0) sh.pos[0] = v;
-  }
-  __syncthreads();
-  v = sh.pos[0];
-  __syncthreads();
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(FULL_MASK, v, off);

@@ -17,6 +17,7 @@ from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import ops
 from repro_torch.kernels import simhash as sh
+from torch_fused_cases import edge_case_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +87,106 @@ def test_fused_query_kernel_matches_plain(dev, score, m):
         torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("score", ["dot", "hamming"])
+@pytest.mark.parametrize("m", [1, 10, 32, 33, 700])
+def test_fused_query_kernel_matches_plain_on_edge_cases(dev, score, m):
+    """A later copy of an id scoring higher (once, and 32 times over so
+    that the selection falls back to its hash), a row with no valid
+    probe, a bucket probed twice, an exclude id present, exact ties, m
+    above the live count, and 40 rows on one bucket (eight work items);
+    m = 32 and 33 straddle the warp-list selection's limit."""
+    args = edge_case_rows(score, device=dev)
+    gi, gs = ops.fused_query(*args, m=m, score=score)
+    wi, ws = fq.fused_query_plain(*args, m=m, score=score)
+    assert torch.equal(gi, wi)
+    if score == "hamming":
+        assert torch.equal(gs, ws)
+    else:
+        torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 10, 700])
+def test_fused_query_kernel_read_back_path(dev, monkeypatch, m):
+    """Dot with the score buffer sized by the count of valid pairs read
+    back from the card (the path of batches whose r*P-pair buffer would
+    be too large), on the edge cases, against the plain version."""
+    monkeypatch.setattr(fq, "SCORE_BUFFER_BYTES", 0)
+    args = edge_case_rows("dot", device=dev)
+    gi, gs = ops.fused_query(*args, m=m)
+    wi, ws = fq.fused_query_plain(*args, m=m)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("score,dw,m", [
+    ("dot", 128, 10), ("dot", 37, 40), ("hamming", 2, 10), ("hamming", 3, 33),
+])
+def test_fused_query_kernel_full_buckets(dev, score, dw, m):
+    """Every slot live and ids repeated across buckets: the first-occurrence
+    hash at its highest load (P*C = 6656 ids in 8192 slots), the scalar
+    dot path (dw = 37), and the sorted path of m > 32."""
+    g = torch.Generator().manual_seed(dw + m)
+    rows, c, r, p = 24, 512, 40, 13
+    ids = torch.randint(0, 20000, (rows, c), generator=g, dtype=torch.int32)
+    if score == "dot":
+        pay = torch.nn.functional.normalize(
+            torch.randn((rows, c, dw), generator=g), dim=-1)
+        q = torch.nn.functional.normalize(torch.randn((r, dw), generator=g),
+                                          dim=-1)
+    else:
+        pay = torch.randint(-2**31, 2**31, (rows, c, dw), generator=g,
+                            dtype=torch.int64).to(torch.int32)
+        q = torch.randint(-2**31, 2**31, (r, dw), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    fb = torch.stack([torch.randperm(rows, generator=g)[:p]
+                      for _ in range(r)]).to(torch.int32)
+    meta = torch.stack([torch.full((r,), (1 << p) - 1, dtype=torch.int32),
+                        ids[fb[:, 0].long(), 0]], dim=1)
+    args = [t.to(dev) for t in (ids, pay, q, fb, meta)]
+    gi, gs = ops.fused_query(*args, m=m, score=score)
+    wi, ws = fq.fused_query_plain(*args, m=m, score=score)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("r,n_probes,n_rows,hot,split", [
+    (1, 1, 1, 0, True), (300, 13, 40, 0, True), (4096, 13, 16384, 0, True),
+    (2000, 9, 64, 1500, True), (700, 31, 9, 100, False), (5, 3, 2, 0, True),
+])
+def test_grouping_kernels_match_plain(dev, r, n_probes, n_rows, hot, split):
+    """The counting sort of fused_query against `group_pairs`, up to the
+    order of pairs within a bucket row and of rows within each class."""
+    g = torch.Generator().manual_seed(r + n_probes)
+    fb = torch.randint(-2, n_rows + 2, (r, n_probes), generator=g,
+                       dtype=torch.int32)
+    pw = torch.randint(0, 1 << n_probes, (r,), generator=g, dtype=torch.int64)
+    pw[::7] = 0
+    pw[1::5] = 1 << (n_probes - 1)
+    fb[:hot] = 1
+    pw[:hot] = (1 << n_probes) - 1
+    meta = torch.stack([pw.to(torch.int32),
+                        torch.full((r,), -1, dtype=torch.int32)], dim=1)
+    got = fq.group_pairs_cuda(fb.to(dev), meta.to(dev), n_rows,
+                              split_small=split)
+    torch.cuda.synchronize()
+    want = fq.group_pairs(fb, meta, n_rows, split_small=split)
+    n_pairs, n_small = want.sizes.tolist()
+    assert got.sizes.tolist() == [n_pairs, n_small]
+    assert torch.equal(got.row_ptr.cpu(), want.row_ptr)
+    order = got.row_order.cpu()
+    for part in (slice(0, n_small), slice(n_small, r)):
+        assert torch.equal(order[part].sort().values, want.row_order[part])
+    assert torch.equal(got.by_bucket[:n_pairs].cpu(), want.by_bucket[:n_pairs])
+    key = lambda x: sorted(zip(x.by_bucket[:n_pairs].tolist(),
+                               x.by_row[:n_pairs].tolist(),
+                               x.by_pair[:n_pairs].tolist()))
+    assert key(got) == key(want)
+    n_items = int(want.n_items)
+    assert int(got.n_items) == n_items
+    assert torch.equal(got.item_start[:n_items].cpu(),
+                       want.item_start[:n_items])
+
+
 def test_fused_contains_kernel_matches_plain(dev):
     ids, _, g = _store(dev, 3)
     fb = torch.randint(0, ids.shape[0], (300, 5), generator=g,
@@ -115,8 +216,10 @@ def test_bucket_topk_kernel_matches_plain(dev, kc, m):
 
 @pytest.mark.parametrize("op", ["fused_query", "bucket_topk"])
 def test_shapes_beyond_shared_memory_raise(dev, op):
-    """A block holds every candidate's score in shared memory; shapes that
-    would overflow it raise ValueError, and the next launch still works."""
+    """A block holds every candidate of its row in shared memory (its
+    score in bucket_topk, its id and position in fused_query's hash);
+    shapes that would overflow it raise ValueError, and the next launch
+    still works."""
     if op == "fused_query":
         ids = torch.zeros((2, 2048), dtype=torch.int32, device=dev)
         words = torch.zeros((2, 2048, 1), dtype=torch.int32, device=dev)
