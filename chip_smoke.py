@@ -17,9 +17,11 @@ failure:
      shapes the main path gives it, with times: simhash, fused_query
      (dot, also with the score buffer sized by a read-back of the pair
      count, and hamming, plus the edge cases of `tests/torch_fused_cases.
-     py` at m = 1, 10, 700), fused_contains, bucket_topk,
-     and hamming_words at the CNB cache stage's shape of the 16-node
-     mesh, hamming at [4096] x [4096, 6656];
+     py` at m = 1, 10, 700), fused_contains, bucket_topk, and
+     hamming_words at the CNB cache stage's shape of the 16-node mesh,
+     hamming at [4096] x [4096, 6656]; simhash and bucket_topk also print
+     the grid their module picked and the bytes/s and FLOP/s they reached
+     beside the card's peaks, and simhash its wrapper's host cost a call;
   5. runtime search through `IndexRuntime(use_kernels=True)`, dot and
      hamming, for lsh / nb / cnb and ranked cnb: ms per batch, queries/s,
      self-hit@1 and recall@10 against brute-force top-10; each cell
@@ -98,6 +100,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def host_us(torch, fn, reps: int = 2000) -> float:
+    """Mean host-clock microseconds `fn` takes to return, over `reps`
+    back-to-back calls after one warm-up: a wrapper's host cost a call,
+    where its device work is shorter (the card keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, flops: float = 0.0):
@@ -251,8 +267,11 @@ def main() -> int:
     # simhash, at the query batch and at the corpus build
     cfg = RuntimeConfig(params=params, variant="cnb", use_kernels=True)
 
-    def simhash_check(xs, packed):
-        got = ops.simhash(xs, h, packed=packed)
+    def simhash_check(xs, packed, got=None):
+        """Hold the kernel's codes `got` of xs (launched here if None)
+        against the plain version: every flipped bit within the band."""
+        if got is None:
+            got = ops.simhash(xs, h, packed=packed)
         want = sh_mod.simhash_plain(xs, h, packed=packed)
         flips = torch.bitwise_xor(got, want)
         if not bool(flips.any()):
@@ -279,8 +298,9 @@ def main() -> int:
     n_q, e_q = simhash_check(q, False)
     n_w, e_w = simhash_check(q, True)
     n_c, e_c = 0, 0.0
-    for s0 in range(0, N, 1 << 18):
-        a, b = simhash_check(x[s0:s0 + (1 << 18)], False)
+    for s0 in range(0, N, 1 << 18):  # the corpus build's own codes
+        sl = slice(s0, s0 + (1 << 18))
+        a, b = simhash_check(x[sl], False, got=corpus_codes[sl])
         n_c, e_c = n_c + a, max(e_c, b)
     h_t = h.reshape(L * K, D).T.contiguous()
     sh_ms = cuda_ms(torch, lambda: ops.simhash(q, h), 50)
@@ -291,22 +311,44 @@ def main() -> int:
         sh_mod.simhash_plain(x[s:s + (1 << 18)], h)
         for s in range(0, N, 1 << 18)]), 2)
     shc_lib = cuda_ms(torch, lambda: torch.matmul(x, h_t), 5)
-    b_ms, b_by = bound(NQ * D * 4 + L * K * D * 4 + NQ * L * 4,
-                       2.0 * NQ * D * L * K)
-    bc_ms, _ = bound(N * D * 4 + L * K * D * 4 + N * L * 4,
-                     2.0 * N * D * L * K)
+    shw_ms = cuda_ms(torch, lambda: ops.simhash(q, h, packed=True), 50)
+    sh_bytes = NQ * D * 4 + L * K * D * 4 + NQ * L * 4
+    shc_bytes = N * D * 4 + L * K * D * 4 + N * L * 4
+    b_ms, b_by = bound(sh_bytes, 2.0 * NQ * D * L * K)
+    bc_ms, _ = bound(shc_bytes, 2.0 * N * D * L * K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"[kernel] simhash: flipped bits within the 1e-5 band: query codes "
         f"{n_q}, query words {n_w}, corpus codes {n_c} (max |proj| "
-        f"{max(e_q, e_w, e_c):.3g}); n={NQ}: {sh_ms:.4f} ms, plain "
+        f"{max(e_q, e_w, e_c):.3g}); n={NQ}: {sh_ms:.4f} ms (words "
+        f"{shw_ms:.4f} ms), plain "
         f"{sh_plain:.4f} ms, matmul {sh_lib:.4f} ms, bound {b_ms:.4f} ms; "
         f"n={N}: {shc_ms:.4f} ms, plain {shc_plain:.4f} ms, matmul "
         f"{shc_lib:.4f} ms, bound {bc_ms:.4f} ms")
+    for n_x, packed, t_ms, nbytes in ((NQ, False, sh_ms, sh_bytes),
+                                      (NQ, True, shw_ms, sh_bytes),
+                                      (N, False, shc_ms, shc_bytes)):
+        g = sh_mod.grid(n_x, D, K, L, packed, sms)
+        log(f"[kernel] simhash grid n={n_x} packed={packed}: {g.blocks} "
+            f"blocks on {sms} SMs ({g}); achieved "
+            f"{nbytes / t_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s, {2.0 * n_x * D * L * K / t_ms / 1e6:.1f} GFLOP/s of "
+            f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
+    # the 1-node cells are host-bound: the wrapper's host cost a call at
+    # the query batch, and that of its grid choice (a cached lookup)
+    sh_host = host_us(torch, lambda: ops.simhash(q, h))
+    sh_grid_host = host_us(torch, lambda: sh_mod.grid(
+        NQ, D, K, L, False, sh_mod._sm_count(q.device.index)))
+    log(f"[kernel] simhash host cost a call at n={NQ}: {sh_host:.2f} us "
+        f"(the grid choice {sh_grid_host:.2f} us)")
     kernels["simhash"] = dict(
         name="simhash", route="cuda",
         source="src/repro_torch/kernels/csrc/simhash.cu",
         replaces="src/repro/kernels/simhash.py:85",
         max_abs_err=max(e_q, e_w, e_c), ms=sh_ms, plain_ms=sh_plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=sh_lib)
+        bound_ms=b_ms, bound_by=b_by, library_ms=sh_lib, words_ms=shw_ms,
+        corpus_ms=shc_ms, corpus_plain_ms=shc_plain, corpus_bound_ms=bc_ms,
+        corpus_library_ms=shc_lib, host_us=sh_host,
+        grid_host_us=sh_grid_host)
 
     # fused_query / fused_contains on the main path's rows
     plan, flat = rt_mod._flat_plan(cfg, rt_mod.LOCAL, q, h)
@@ -453,7 +495,7 @@ def main() -> int:
     from repro_torch.core import scoring
 
     bq = 32 * L
-    errs, ties, bt_t, btp_t, bt_bytes = [], 0, [], [], 0
+    errs, ties, bt_t, btp_t, bt_bytes, bt_flops = [], 0, [], [], 0, 0
     for c0 in range(0, 256 * L, bq):
         sel = slice(c0, c0 + bq)
         qc = q_rows[sel]
@@ -481,13 +523,26 @@ def main() -> int:
         n_valid = int(valid.sum())
         bt_bytes += n_valid * D * 4 + qc.numel() * 4 + vwords.numel() * 4 \
             + bq * M * 8
+        bt_flops += 2.0 * n_valid * D
         kc = vecs.shape[1]
     n_chunks = len(bt_t)
-    bt_b, bt_by = bound(bt_bytes / n_chunks)
+    bt_b, bt_by = bound(bt_bytes / n_chunks, bt_flops / n_chunks)
     log(f"[kernel] bucket_topk: b={bq} rows KC={kc} D={D}; max score err "
         f"{max(errs):.3g}, near-tie id swaps {ties}; mean over {n_chunks} "
         f"chunks {np.mean(bt_t):.4f} ms, plain {np.mean(btp_t):.4f} ms, "
         f"bound {bt_b:.4f} ms")
+    # the wrapper's device time by kernel: the pack_valid glue, the part
+    # and merge kernels (the last chunk)
+    profile_batch(torch, "bucket_topk engine chunk",
+                  lambda: ops.bucket_topk(qc, vecs, valid, M))
+    g_bt = bt_mod.grid(bq, kc, M, sms)
+    log(f"[kernel] bucket_topk grid b={bq} kc={kc} m={M}: {g_bt.parts} parts "
+        f"a row of {g_bt.words_per_part} validity words, {g_bt.blocks} blocks "
+        f"on {sms} SMs; achieved "
+        f"{bt_bytes / n_chunks / np.mean(bt_t) / 1e6:.1f} GB/s of "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{bt_flops / n_chunks / np.mean(bt_t) / 1e6:.1f} GFLOP/s of "
+        f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
     kernels["bucket_topk"] = dict(
         name="bucket_topk", route="cuda",
         source="src/repro_torch/kernels/csrc/bucket_topk.cu",

@@ -66,9 +66,6 @@
 #define FQ_SMALL_WARPS 8  // rows a block of the single-pair select takes
 #define FQ_FAST_M 32      // largest m of the warp-list selection
 #define FQ_UNROLL 4       // independent loads in flight per lane
-#define FQ_EMPTY 0xffffffffffffffffull
-
-typedef unsigned long long u64;
 
 static size_t fq_score_smem(int c, int dw) {
   return (size_t)FQ_ITEM_ROWS * dw * 4 + (size_t)c * 4;
@@ -414,7 +411,8 @@ fq_score_dot(const int32_t* __restrict__ ids_flat,  // [R, C]
 // A row's K = np*C candidates sit in shared memory as ids (int32, -1 for
 // dead or excluded lanes) indexed by flat position pos = k*C + slot.
 //
-// m <= 32: every warp keeps the m best (score, id, pos) entries it sees,
+// m <= 32: every warp keeps the m best (score, id, pos) entries it sees
+// (a WarpList of common.cuh),
 // with no dedup; the block's m best L follow by merging.  An entry of L
 // counts iff it is its id's first occurrence, which one pass over the
 // row's ids decides (a 4096-bit filter of L's ids in front of the exact
@@ -430,66 +428,6 @@ fq_score_dot(const int32_t* __restrict__ ids_flat,  // [R, C]
 
 #define FQ_NONE 0xffff
 #define FQ_FILTER_WORDS 128  // 4096-bit filter of L's ids
-
-struct Entry {
-  float s;
-  int id, pos;
-};
-
-__device__ __forceinline__ Entry no_entry() {
-  return Entry{-CUDART_INF_F, INT_MAX_, INT_MAX_};
-}
-
-__device__ __forceinline__ bool ahead(const Entry& a, const Entry& b) {
-  return better(a.s, a.id, a.pos, b.s, b.id, b.pos);
-}
-
-__device__ __forceinline__ Entry shfl(const Entry& e, int src) {
-  return Entry{__shfl_sync(FULL_MASK, e.s, src),
-               __shfl_sync(FULL_MASK, e.id, src),
-               __shfl_sync(FULL_MASK, e.pos, src)};
-}
-
-// Entry i on lane i < m, best first; `mth` the m-th best and `floor` a
-// bound no entry below which can be among the row's best m (both on
-// every lane).
-struct WarpList {
-  Entry e, mth, floor;
-};
-
-__device__ __forceinline__ WarpList empty_list() {
-  return WarpList{no_entry(), no_entry(), no_entry()};
-}
-
-// Insert c, held by every lane, into the list (order `better`: score
-// desc, then id, then position).
-__device__ __forceinline__ void list_insert(WarpList& l, const Entry& c,
-                                            int m, int lane) {
-  if (!ahead(c, l.mth)) return;  // warp-uniform
-  const int p = __popc(__ballot_sync(FULL_MASK, lane < m && ahead(l.e, c)));
-  const Entry up = Entry{__shfl_up_sync(FULL_MASK, l.e.s, 1),
-                         __shfl_up_sync(FULL_MASK, l.e.id, 1),
-                         __shfl_up_sync(FULL_MASK, l.e.pos, 1)};
-  if (lane > p)
-    l.e = up;
-  else if (lane == p)
-    l.e = c;
-  l.mth = shfl(l.e, m - 1);
-}
-
-// Each lane offers one entry (s = -inf: none); those at or above the
-// floor and above the list's m-th best enter it one by one.
-__device__ __forceinline__ void list_offer(WarpList& l, const Entry& c,
-                                           int m, int lane) {
-  unsigned bal = __ballot_sync(FULL_MASK, c.s > -CUDART_INF_F &&
-                                              !ahead(l.floor, c) &&
-                                              ahead(c, l.mth));
-  while (bal) {
-    const int src = __ffs(bal) - 1;
-    bal &= bal - 1;
-    list_insert(l, shfl(c, src), m, lane);
-  }
-}
 
 // The m-th best of the warp's 32 lane entries (a bitonic sort, best to
 // lane 0), on every lane.
@@ -722,18 +660,6 @@ __device__ __forceinline__ void write_padding(int32_t* out_i, float* out_s,
   }
 }
 
-// u64 sort key, ascending = (score desc, id asc)
-__device__ __forceinline__ u64 sort_key(float s, int id) {
-  const unsigned b = __float_as_uint(s);
-  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((u64)(~o) << 32) | (unsigned)id;
-}
-
-__device__ __forceinline__ float key_score(u64 key) {
-  const unsigned o = ~(unsigned)(key >> 32);
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
 // Per-warp shared memory of fq_select_small, in 4-byte words.
 __host__ __device__ __forceinline__ int small_words(int c) {
   return 2 * c + (int)(sizeof(Verify) / 4);
@@ -895,13 +821,13 @@ fq_select(const int32_t* __restrict__ ids_flat,  // [R, C]
     }
   } else {
     // m > 32: the first occurrences as sort keys, sorted bitonically over
-    // the next power of two (other keys FQ_EMPTY, sorted last)
+    // the next power of two (other keys KEY_NONE, sorted last)
     build_table(tab, t, ids, k_all, tid, FQ_SELECT_THREADS, sync);
     u64* keys = reinterpret_cast<u64*>(big_smem + 2 * k_alloc);
     unsigned t2 = 1;
     while (t2 < (unsigned)k_all) t2 <<= 1;
     for (int i = tid; i < (int)t2; i += FQ_SELECT_THREADS) {
-      u64 key = FQ_EMPTY;
+      u64 key = KEY_NONE;
       if (i < k_all && ids[i] >= 0 && fq_first(tab, t, ids, ids[i]) == i) {
         const float x = sc(i);
         if (x > -CUDART_INF_F) key = sort_key(x, ids[i]);
@@ -909,24 +835,10 @@ fq_select(const int32_t* __restrict__ ids_flat,  // [R, C]
       keys[i] = key;
     }
     __syncthreads();
-    for (unsigned kk = 2; kk <= t2; kk <<= 1) {
-      for (unsigned j = kk >> 1; j > 0; j >>= 1) {
-        for (unsigned i = tid; i < t2; i += FQ_SELECT_THREADS) {
-          const unsigned o = i ^ j;
-          if (o > i) {
-            const u64 a = keys[i], bb = keys[o];
-            if ((a > bb) == ((i & kk) == 0)) {
-              keys[i] = bb;
-              keys[o] = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
+    block_sort(keys, t2);
     for (int j = tid; j < m; j += FQ_SELECT_THREADS) {
-      const u64 key = j < (int)t2 ? keys[j] : FQ_EMPTY;
-      const bool ok = key != FQ_EMPTY;
+      const u64 key = j < (int)t2 ? keys[j] : KEY_NONE;
+      const bool ok = key != KEY_NONE;
       out_i[r * m + j] = ok ? (int)(unsigned)key : -1;
       out_s[r * m + j] = ok ? key_score(key) : -CUDART_INF_F;
     }

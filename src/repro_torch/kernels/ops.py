@@ -5,9 +5,10 @@ Each wrapper checks device, dtype, shape and contiguity, then:
   * on CUDA tensors launches the CUDA kernel on the current stream, and
     counts the launch in `LAUNCHES`, or raises.  There is no fallback.
 
-Tile padding is each kernel's own business, and the block shapes are
-constants in the CUDA sources (the TPU's autotuned block shapes have no
-counterpart yet).
+Tile padding is each kernel's own business.  simhash and bucket_topk
+take grids that their modules pick from the shapes and the card's SM
+count (`simhash.grid`, `bucket_topk.grid`); the other kernels' block
+shapes are constants in the CUDA sources.
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ def bucket_topk(q: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
         return _bt.bucket_topk_plain(q, cand, vwords, m)
     _check_dtype("bucket_topk", "q", q, torch.float32)
     _check_dtype("bucket_topk", "cand", cand, torch.float32)
+    if min(cand.shape[:2]) == 0 or m == 0:  # nothing to launch
+        return (torch.full((cand.shape[0], m), float("-inf"), device=q.device),
+                torch.full((cand.shape[0], m), -1, dtype=torch.int32,
+                           device=q.device))
     out = _bt.bucket_topk_cuda(q, cand, vwords, m)
     LAUNCHES["bucket_topk"] += 1
     return out

@@ -1,17 +1,111 @@
 """simhash: fused sign-random-projection sketching.
 
 `simhash_cuda` launches `csrc/simhash.cu` (the CUDA port of the TPU
-kernel `repro/kernels/simhash.py::simhash_pallas`); `simhash_plain` is
-the same function in plain PyTorch, which serves CPU tensors and is
-what the kernel is held against.
+kernel `repro/kernels/simhash.py::simhash_pallas`) on the grid that
+`grid` picks; `simhash_plain` is the same function in plain PyTorch,
+which serves CPU tensors and is what the kernel is held against.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from repro_torch.core.packed import num_words, pack_codes
 from repro_torch.kernels import _build, ref
+
+GROUP = 12                 # hyperplanes a stream lane holds sums for
+MAX_WARPS = 8              # warps a stream block, at most
+WARP_BLOCK = 4             # warps a block of the warp kernel
+SMEM_BLOCK = 232_448       # dynamic shared memory a block may opt into
+STREAM_COLS = 32           # columns of a stage of a stream warp's ring
+STREAM_STAGES = 2
+WARP_ROWS_PER_SM = 96      # fewer rows an SM take the warp kernel
+STREAM_GROUPS = 4          # groups of 12 hyperplanes a stream block holds
+
+
+@dataclasses.dataclass(frozen=True)
+class SimhashGrid:
+    """The launch shape of `csrc/simhash.cu`.
+
+    `stream`: the stream kernel (`grid_rows` x `col_splits` blocks of
+    `warps` warps, each warp on `chunk_rows`-row chunks of x against the
+    hyperplanes of `elems_per_block` output elements, at most
+    STREAM_GROUPS groups of 12, staged in `smem` bytes) or the warp kernel
+    (a warp on 4 rows of a code or 2 rows of a packed word, `warps` a
+    block, `grid_rows` blocks)."""
+    stream: bool
+    warps: int
+    chunk_rows: int
+    elems_per_block: int
+    col_splits: int
+    grid_rows: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_rows * self.col_splits
+
+
+def element_spans(k: int, L: int, packed: bool) -> list[tuple[int, int]]:
+    """Global hyperplane range [lo, hi) of each output element."""
+    lk = L * k
+    if packed:
+        return [(32 * w, min(32 * w + 32, lk)) for w in range(num_words(k, L))]
+    return [(l * k, l * k + k) for l in range(L)]
+
+
+def _groups(spans, epb: int) -> int:
+    """The most groups of 12 hyperplanes one block of `epb` elements
+    holds."""
+    return max(-(-(spans[min(i + epb, len(spans)) - 1][1] - spans[i][0])
+                 // GROUP) for i in range(0, len(spans), epb))
+
+
+def stream_smem_bytes(d: int, warps: int, rows: int) -> int:
+    """Shared memory of a stream block (`csrc/simhash.cu::stream_smem`):
+    its 48 hyperplanes, transposed, and each warp's ring."""
+    return 4 * (((d + 3) & ~3) * GROUP * STREAM_GROUPS
+                + warps * STREAM_STAGES * rows * STREAM_COLS)
+
+
+@functools.lru_cache(maxsize=256)
+def grid(n: int, d: int, k: int, L: int, packed: bool,
+         sms: int) -> SimhashGrid:
+    """The launch shape for x [n, d] against L*k hyperplanes on a card of
+    `sms` SMs.
+
+    Below WARP_ROWS_PER_SM rows an SM (a search batch) the warp kernel:
+    a warp on 4 rows of a code (k <= 16) or 2 rows of a word, one round
+    of loads.  Above, the stream kernel: a block an SM with up to 8
+    warps, every output element in one block where their hyperplanes
+    fit in 48 (x is read once), else the fewest blocks along the
+    elements; 64-row chunks once there are 4 an SM, else 32-row chunks,
+    so that more warps share the rows.
+    (The crossovers were measured on an H100 SXM, 132 SMs.)"""
+    spans = element_spans(k, L, packed)
+    if n >= WARP_ROWS_PER_SM * sms:
+        epb = len(spans)
+        while _groups(spans, epb) > STREAM_GROUPS:
+            epb -= 1
+        rows = 64 if -(-n // 64) >= 4 * sms else 32
+        chunks = -(-n // rows)
+        warps = min(MAX_WARPS, -(-chunks // sms))
+        smem = stream_smem_bytes(d, warps, rows)
+        if smem <= SMEM_BLOCK:
+            return SimhashGrid(True, warps, rows, epb,
+                               -(-len(spans) // epb),
+                               min(sms, -(-chunks // warps)), smem)
+    rows = 4 if max(hi - lo for lo, hi in spans) <= 16 else 2
+    return SimhashGrid(False, WARP_BLOCK, rows, 1, 1,
+                       -(-(-(-n // rows) * len(spans)) // WARP_BLOCK), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def simhash_plain(x: torch.Tensor, hyperplanes: torch.Tensor, *,
@@ -28,9 +122,14 @@ def simhash_cuda(x: torch.Tensor, hyperplanes: torch.Tensor, *,
     L, k, _ = hyperplanes.shape
     width = num_words(k, L) if packed else L
     out = torch.empty((n, width), dtype=torch.int32, device=x.device)
+    g = grid(n, d, k, L, packed, _sm_count(x.device.index
+                                           if x.device.index is not None
+                                           else torch.cuda.current_device()))
     launch = _build.entry("simhash", "simhash_launch", [_build.P] * 3 + [
-        _build.I] * 5 + [_build.P])
+        _build.I] * 10 + [_build.P])
     _build.check(launch(x.data_ptr(), hyperplanes.data_ptr(), out.data_ptr(),
-                        n, d, k, L, int(packed), _build.stream_of(x)),
+                        n, d, k, L, int(packed), int(g.stream), g.warps,
+                        g.chunk_rows, g.elems_per_block, g.grid_rows,
+                        _build.stream_of(x)),
                  f"simhash (d={d}, L*k={L * k})")
     return out

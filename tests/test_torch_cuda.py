@@ -43,11 +43,24 @@ def _store(dev, seed, rows=40, c=96, dw=128, score="dot"):
     return ids.to(dev), pay.to(dev), g
 
 
+# the stream kernel with blocks of 8 warps, each warp on 3 chunks or more
+# and a ragged last chunk (3 x 8 warps x 132 SMs x 64 rows + 37), and with
+# blocks of 2 warps (16384 + 37 rows); fewer rows take the warp kernel
+STREAM_ROWS = 3 * 8 * 132 * 64 + 37
+RING_ROWS = 16384 + 37
+
+
 @pytest.mark.parametrize("packed_out", [False, True])
 @pytest.mark.parametrize("n,d,k,L,offset", [
-    (1, 128, 12, 4, 0), (1000, 128, 12, 4, 0), (77, 40, 30, 3, 0),
+    (1, 128, 12, 4, 0), (7, 128, 12, 4, 0),  # fewer rows than a tile
+    (1000, 128, 12, 4, 0), (1024, 128, 12, 4, 0), (77, 40, 30, 3, 0),
     (300, 37, 7, 2, 0),   # d % 4 != 0: scalar staging, padded columns
     (300, 128, 12, 4, 1),  # x not 16-byte aligned: scalar staging
+    (2000, 128, 5, 5, 0),  # L*k = 25: neither 12 nor 32 divides it
+    (RING_ROWS, 128, 12, 4, 0),
+    (STREAM_ROWS, 128, 12, 4, 0), (STREAM_ROWS, 37, 7, 2, 0),
+    (STREAM_ROWS, 128, 12, 4, 1),  # ... through the scalar staging
+    (STREAM_ROWS, 64, 30, 9, 0),  # one block along each 30-bit table
 ])
 def test_simhash_kernel_matches_plain(dev, n, d, k, L, offset, packed_out):
     g = torch.Generator().manual_seed(n)
@@ -198,15 +211,57 @@ def test_fused_contains_kernel_matches_plain(dev):
                        fq.fused_contains_plain(ids, fb, meta))
 
 
-@pytest.mark.parametrize("kc,m", [(33, 50), (6656, 10)])
-def test_bucket_topk_kernel_matches_plain(dev, kc, m):
-    g = torch.Generator().manual_seed(kc)
+@pytest.mark.parametrize("b,kc,m", [
+    (16, 33, 50), (16, 6656, 10), (16, 1, 1), (16, 1, 10), (16, 1000, 1),
+    (1, 6656, 10), (1, 6656, 50), (3, 6656, 33), (128, 6656, 10),
+    (4096, 1024, 10), (7, 1000 + 5, 50),  # kc not a multiple of 32
+])
+def test_bucket_topk_kernel_matches_plain(dev, b, kc, m):
+    """Ids equal to the plain version's, scores within 1e-5: exactly equal
+    scores (every third lane copies lane 0; every 97th copies the row's
+    best, across part boundaries: the lowest lane first), a row with no
+    valid lane, a row whose first half is invalid (whole parts), a row
+    with one valid lane (fewer than m)."""
+    g = torch.Generator(device=dev).manual_seed(b * kc + m)
     q = torch.nn.functional.normalize(
-        torch.randn((16, 128), generator=g), dim=-1).to(dev)
+        torch.randn((b, 128), generator=g, device=dev), dim=-1)
     cand = torch.nn.functional.normalize(
-        torch.randn((16, kc, 128), generator=g), dim=-1).to(dev)
+        torch.randn((b, kc, 128), generator=g, device=dev), dim=-1)
     cand[:, 1::3] = cand[:, :1]  # exactly equal scores: lowest index first
-    valid = (torch.rand((16, kc), generator=g) < 0.6).to(dev)
+    if kc > 97:
+        cand[:, 0] = q
+        cand[:, ::97] = cand[:, :1]
+    valid = torch.rand((b, kc), generator=g, device=dev) < 0.6
+    if b > 1:
+        valid[0] = False
+    if b > 2:
+        valid[1, : kc // 2] = False
+        valid[2] = False
+        valid[2, kc - 1] = True
+    ops.reset_launches()
+    gs, gi = ops.bucket_topk(q, cand, valid, m)
+    assert ops.LAUNCHES["bucket_topk"] == 1
+    ws, wi = bt.bucket_topk_plain(q, cand, bt.pack_valid(valid), m)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
+    assert (gi[0] == -1).all() == (b > 1)
+
+
+def test_bucket_topk_kernel_splits_rows_whose_sort_overflows(dev):
+    """m > 32 with more rows than 4 blocks an SM and 16 416 lanes: one part
+    a row would sort more keys than a block holds, so the grid splits each
+    row in two; ids equal to the plain version's, scores within 1e-5."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, kc, d, m = 4 * sms + 1, 16416, 32, 50
+    assert bt.grid(b, kc, m, sms).parts > 1
+    g = torch.Generator(device=dev).manual_seed(kc)
+    q = torch.nn.functional.normalize(
+        torch.randn((b, d), generator=g, device=dev), dim=-1)
+    cand = torch.nn.functional.normalize(
+        torch.randn((b, kc, d), generator=g, device=dev), dim=-1)
+    cand[:, 0] = q
+    cand[:, ::97] = cand[:, :1]  # the row's best, tied across both parts
+    valid = torch.rand((b, kc), generator=g, device=dev) < 0.6
     valid[0] = False
     gs, gi = ops.bucket_topk(q, cand, valid, m)
     ws, wi = bt.bucket_topk_plain(q, cand, bt.pack_valid(valid), m)
@@ -214,10 +269,22 @@ def test_bucket_topk_kernel_matches_plain(dev, kc, m):
     torch.testing.assert_close(gs, ws, atol=1e-5, rtol=0)
 
 
+def test_bucket_topk_kernel_takes_no_rows(dev):
+    """b = 0: empty outputs, nothing launched."""
+    ops.reset_launches()
+    gs, gi = ops.bucket_topk(torch.zeros((0, 128), device=dev),
+                             torch.zeros((0, 64, 128), device=dev),
+                             torch.zeros((0, 64), dtype=torch.bool,
+                                         device=dev), 10)
+    assert gs.shape == gi.shape == (0, 10)
+    assert ops.LAUNCHES["bucket_topk"] == 0
+
+
 @pytest.mark.parametrize("op", ["fused_query", "bucket_topk"])
 def test_shapes_beyond_shared_memory_raise(dev, op):
     """A block holds every candidate of its row in shared memory (its
-    score in bucket_topk, its id and position in fused_query's hash);
+    id and position in fused_query's hash; in bucket_topk at m > 32, its
+    sort key in the part's block, which at m = 5000 takes the whole row);
     shapes that would overflow it raise ValueError, and the next launch
     still works."""
     if op == "fused_query":
@@ -237,7 +304,7 @@ def test_shapes_beyond_shared_memory_raise(dev, op):
         cand = torch.zeros((1, 60000, 128), device=dev)
         valid = torch.ones((1, 60000), dtype=torch.bool, device=dev)
         with pytest.raises(ValueError, match="shared memory"):
-            ops.bucket_topk(q, cand, valid, 1)
+            ops.bucket_topk(q, cand, valid, 5000)
         got = ops.bucket_topk(q, cand[:, :64].contiguous(), valid[:, :64], 1)
         assert got[1].tolist() == [[0]]
 
