@@ -17,7 +17,8 @@ failure:
      shapes the main path gives it, with times: simhash, fused_query
      (dot, also with the score buffer sized by a read-back of the pair
      count, and hamming, plus the edge cases of `tests/torch_fused_cases.
-     py` at m = 1, 10, 700), fused_contains, bucket_topk, and
+     py` at m = 1, 10, 700), fused_contains (under hit and under miss
+     traffic), bucket_topk, and
      hamming_words at the CNB cache stage's shape of the 16-node mesh,
      hamming at [4096] x [4096, 6656]; simhash and bucket_topk also print
      the grid their module picked and the bytes/s and FLOP/s they reached
@@ -28,7 +29,7 @@ failure:
      holds fused_query against its plain version on the inputs it
      records from one batch; 5b. the staged
      hamming cnb cell (`fused="off"`), equal to the fused one exactly;
-  6. contains, equal to the staged plain path;
+  6. contains, equal to the staged plain path: ms per batch, contains/s;
   7. the engine (`LshEngine(use_kernels=True)`), ids equal to the runtime's;
   8. churn: insert of re-announces, expire, search; `generation` advances
      as the reference's does;
@@ -37,10 +38,11 @@ failure:
      cnb under allgather at zero drops, ids and scores equal to the
      1-node runtime's exactly, and cnb at the default cap_factor with
      its drops; 4 nodes, dot, 256 queries: nb / cnb, ids equal up to
-     near ties; contains at 16 nodes equal to the 1-node contains; the
-     CNB cache refresh.  Per cell: ms per batch, queries/s, the router's
-     counters, the wire bytes of `estimate_query_bytes`, and a
-     torch.profiler trace of one batch (device time by kernel, busy share).
+     near ties; contains at 16 nodes equal to the 1-node contains, with
+     ms per batch and contains/s; the CNB cache refresh.  Per cell: ms
+     per batch, queries/s, the router's counters, the wire bytes of
+     `estimate_query_bytes`, and a torch.profiler trace of one batch
+     (device time by kernel, busy share).
      Each cell holds its owner stage's fused_query, and, through the
      cache or NB stage, bucket_topk or hamming_words, against the plain
      version on the very inputs the path gives them, recorded from one
@@ -53,7 +55,8 @@ failure:
 
 Kernel times come from one CUDA event pair per call, recorded while the
 card still spins on a sleep kernel, so the host's launch pace stays out
-of the reading.
+of the reading.  Batch times are host clock, with Python's garbage
+collector collected before and off during the timed batches.
 
 The last line is `{"ok": true, "device": {...}}`.  With no CUDA device,
 or without the repo around it, the script exits non-zero with no result.
@@ -62,6 +65,8 @@ or without the repo around it, the script exits non-zero with no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -114,6 +119,19 @@ def host_us(torch, fn, reps: int = 2000) -> float:
     us = (time.perf_counter() - t0) * 1e6 / reps
     torch.cuda.synchronize()
     return us
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Collect, then keep Python's garbage collector off for the block:
+    host-clock batch times then hold no collection's pause, wherever the
+    allocations before them would have triggered one."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 def bound(nbytes: float, flops: float = 0.0):
@@ -336,8 +354,8 @@ def main() -> int:
     # the 1-node cells are host-bound: the wrapper's host cost a call at
     # the query batch, and that of its grid choice (a cached lookup)
     sh_host = host_us(torch, lambda: ops.simhash(q, h))
-    sh_grid_host = host_us(torch, lambda: sh_mod.grid(
-        NQ, D, K, L, False, sh_mod._sm_count(q.device.index)))
+    sh_grid_host = host_us(torch, lambda: sh_mod.grid(NQ, D, K, L, False,
+                                                      sms))
     log(f"[kernel] simhash host cost a call at n={NQ}: {sh_host:.2f} us "
         f"(the grid choice {sh_grid_host:.2f} us)")
     kernels["simhash"] = dict(
@@ -471,23 +489,63 @@ def main() -> int:
         hamming_ms=fqh_ms, hamming_plain_ms=fqh_plain,
         hamming_bound_ms=fqh_b)
 
-    kh = ops.fused_contains(ids_flat, fb, tgt_meta)
-    ph = fq_mod.fused_contains_plain(ids_flat, fb, tgt_meta)
-    if not torch.equal(kh, ph):
-        raise AssertionError("fused_contains: kernel != plain")
-    fc_ms = cuda_ms(torch, lambda: ops.fused_contains(ids_flat, fb, tgt_meta),
-                    50)
-    fc_plain = cuda_ms(torch, lambda: fq_mod.fused_contains_plain(
-        ids_flat, fb, tgt_meta), 10)
-    fc_b, fc_by = bound(n_rows_read * C * 4 + r * (P + 2) * 4 + r * 4)
-    log(f"[kernel] fused_contains: exact, {int(kh.sum())} of {r} rows hit; "
-        f"{fc_ms:.4f} ms, plain {fc_plain:.4f} ms, bound {fc_b:.4f} ms")
+    # fused_contains under hit traffic (each row's own query id, which
+    # lies in its exact bucket, the first probe, unless evicted) and miss
+    # traffic (ids no bucket holds, so every valid probe is read)
+    miss_meta = torch.stack([pword, N + torch.arange(
+        r, dtype=torch.int32, device=dev)], dim=1)
+    fc = {}
+    for name, m in (("hit", tgt_meta), ("miss", miss_meta)):
+        kh = ops.fused_contains(ids_flat, fb, m)
+        ph = fq_mod.fused_contains_plain(ids_flat, fb, m)
+        if not torch.equal(kh, ph):
+            raise AssertionError(f"fused_contains, {name} traffic: kernel "
+                                 f"!= plain")
+        fc[name] = (int(kh.sum()),
+                    cuda_ms(torch, lambda: ops.fused_contains(ids_flat, fb, m),
+                            50),
+                    cuda_ms(torch, lambda: fq_mod.fused_contains_plain(
+                        ids_flat, fb, m), 10))
+    # the bounds read the id rows of the distinct buckets the rows need:
+    # under hit traffic, each row's valid probes up to the one that holds
+    # its target (the kernel stops there); under miss traffic, all
+    holds = (ids_flat[fb.long()] == tgt_meta[:, 1, None, None]).any(-1)
+    first = torch.where(holds & pvalid, torch.arange(P, device=dev),
+                        P).amin(1, keepdim=True)
+    needed = pvalid & (torch.arange(P, device=dev) <= first)
+    n_hit_rows = torch.unique(fb[needed].long()).numel()
+    meta_bytes = r * (P + 2) * 4 + r
+    fc_b, fc_by = bound(n_hit_rows * C * 4 + meta_bytes)
+    fcm_b, fcm_by = bound(n_rows_read * C * 4 + meta_bytes)
+    # what a grouped design would first spend: the counting sort of the
+    # valid pairs by bucket row that fused_query's dot path runs
+    fc_group = cuda_ms(torch, lambda: fq_mod.group_pairs_cuda(
+        fb, miss_meta, L * NB, split_small=False), 20)
+    # miss traffic over the first 4096 bucket rows (8 MB of ids, which
+    # stay in L2): the kernel's rate when no read reaches HBM
+    fb_l2 = (fb % NB).contiguous()
+    fc_l2 = cuda_ms(torch, lambda: ops.fused_contains(ids_flat, fb_l2,
+                                                      miss_meta), 50)
+    log(f"[kernel] fused_contains: r={r} P={P} C={C}, exact under both "
+        f"traffics; hit: {fc['hit'][0]} of {r} rows hit, {fc['hit'][1]:.4f} "
+        f"ms, plain {fc['hit'][2]:.4f} ms, bound {fc_b:.4f} ms "
+        f"({n_hit_rows} distinct bucket rows up to the hits); miss: "
+        f"{fc['miss'][0]} hits, {fc['miss'][1]:.4f} ms, plain "
+        f"{fc['miss'][2]:.4f} ms, bound {fcm_b:.4f} ms ({n_rows_read} "
+        f"distinct rows; {n_probe_rows} probe rows read at "
+        f"{n_probe_rows * C * 4 / fc['miss'][1] / 1e6:.1f} GB/s); miss over "
+        f"{NB} L2-resident bucket rows {fc_l2:.4f} ms; the counting sort "
+        f"a grouped design would start with {fc_group:.4f} ms")
     kernels["fused_contains"] = dict(
         name="fused_contains", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_query.cu",
         replaces="src/repro/kernels/fused_query.py:195",
-        max_abs_err=0.0, ms=fc_ms, plain_ms=fc_plain, bound_ms=fc_b,
-        bound_by=fc_by, library_ms=None)
+        max_abs_err=0.0, ms=fc["hit"][1], plain_ms=fc["hit"][2],
+        bound_ms=fc_b, bound_by=fc_by, library_ms=None,
+        miss_ms=fc["miss"][1], miss_plain_ms=fc["miss"][2],
+        miss_bound_ms=fcm_b, miss_l2_resident_ms=fc_l2,
+        grouping_ms=fc_group)
+    del holds, fb_l2
 
     # bucket_topk on the engine's chunks: 32 queries = 32*L (query, table)
     # rows of P*C candidate lanes each, sorted by id with repeats masked
@@ -693,11 +751,25 @@ def main() -> int:
         stats)], host ms per batch)."""
         rt.search(h, st, x[qids[0][:nq]], **kw)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [rt.search(h, st, x[qids[b][:nq]], **kw)
-                for b in range(args.batches)]
+        with gc_paused():
+            t0 = time.perf_counter()
+            outs = [rt.search(h, st, x[qids[b][:nq]], **kw)
+                    for b in range(args.batches)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        return outs, ms
+
+    def timed_contains(rt, st, nq=NQ, **kw):
+        """Host ms per contains batch of each query's own id: one warm-up
+        batch, then `--batches` timed ones."""
+        rt.contains(h, st, x[qids[0][:nq]], qids[0][:nq], **kw)
         torch.cuda.synchronize()
-        return outs, (time.perf_counter() - t0) * 1e3 / args.batches
+        with gc_paused():
+            t0 = time.perf_counter()
+            for b in range(args.batches):
+                rt.contains(h, st, x[qids[b][:nq]], qids[b][:nq], **kw)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / args.batches
 
     one_node = {}  # (score, variant) -> (ids, scores) of batch 0
     cells = [("lsh", {}), ("nb", {}), ("cnb", {}),
@@ -758,17 +830,20 @@ def main() -> int:
     want, _ = staged.contains(h, store, q, qids[0])
     if not torch.equal(hits, want):
         raise AssertionError("contains: fused kernel != staged plain path")
+    ms = timed_contains(rt, store)
     log(f"[contains] {int(hits.sum())} of {NQ} queries find their own id; "
-        f"equal to the staged path")
+        f"equal to the staged path; {ms:.3f} ms per batch of {NQ}, "
+        f"{NQ / ms * 1e3:.0f} contains/s")
 
     # -- 7. engine ----------------------------------------------------------
     eng = LshEngine(params, h, ids_only, corpus, None,
                     EngineConfig(variant="cnb", use_kernels=True), device=dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = counted("engine search", ("simhash", "bucket_topk"),
-                  lambda: eng.search(q[:256], m=M))
-    ms = (time.perf_counter() - t0) * 1e3
+    with gc_paused():
+        t0 = time.perf_counter()
+        res = counted("engine search", ("simhash", "bucket_topk"),
+                      lambda: eng.search(q[:256], m=M))
+        ms = (time.perf_counter() - t0) * 1e3
     rt_ids, rt_sc, _ = rt.search(h, store, q[:256])
     e_err, e_ties = compare_topk(
         torch.from_numpy(res.ids), torch.from_numpy(res.scores),
@@ -884,6 +959,9 @@ def main() -> int:
             lambda: rt.contains(h, st16, q, qids[0], cache=c))
         if int(cstats) != 0 or not torch.equal(got_h, hits):
             raise AssertionError(f"mesh contains {variant} != 1-node")
+        ms = timed_contains(rt, st16, cache=c)
+        log(f"[cell] mesh n=16 contains {variant}: {ms:.3f} ms per batch of "
+            f"{NQ}, {NQ / ms * 1e3:.0f} contains/s")
     log("[mesh] n=16 hamming lsh/nb/cnb (alltoall) and cnb (allgather): "
         "ids and scores equal the 1-node runtime's exactly, 0 dropped; "
         "contains nb/cnb equal the 1-node contains")

@@ -21,6 +21,7 @@ an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -114,6 +115,22 @@ def entry(name: str, fn: str, argtypes):
         f.restype = ctypes.c_int
         _entries[key] = f
     return _entries[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA `device` (the current device where it has no
+    index), which the kernels' grids are picked for."""
+    import torch
+
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
 
 
 def stream_of(t) -> int:

@@ -118,11 +118,6 @@ def _top(s, i, m: int):
     return s, i.to(torch.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def bucket_topk_plain(q, cand, vwords, m: int):
     """(scores f32 [b, m], idx int32 [b, m]); ties -> lowest index."""
     return ref.bucket_topk_ref(q, cand, unpack_valid(vwords, cand.shape[1]), m)
@@ -134,9 +129,7 @@ def bucket_topk_cuda(q, cand, vwords, m: int):
     b, kc, d = cand.shape
     scores = torch.empty((b, m), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, m), dtype=torch.int32, device=q.device)
-    dev = q.device.index if q.device.index is not None \
-        else torch.cuda.current_device()
-    g = grid(b, kc, m, _sm_count(dev))
+    g = grid(b, kc, m, _build.sm_count(q.device))
     n_part = b * g.parts if g.parts > 1 or m > FAST_M else 0
     part_s = torch.empty((n_part, m), dtype=torch.float32, device=q.device)
     part_i = torch.empty((n_part, m), dtype=torch.int32, device=q.device)

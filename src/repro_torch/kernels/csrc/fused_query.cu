@@ -55,8 +55,14 @@
 // costs one or two passes over the row's valid pairs, not m block-wide
 // rounds over all P*C lanes.
 //
-// fused_contains: one warp per row ORs ids == target over the valid
-// probes' id rows and reads no payload.  Bound: id-row bytes.
+// fused_contains (a warp a row, below) reads ids only, no payload.
+// Bound: the id rows of the distinct probed buckets, read once (on a
+// hit, those up to the probe that holds it).  Ungrouped, a batch reads a
+// bucket row once for each of its rows that probes it (the 1-node path:
+// 53 248 probe rows over about 15 400 buckets), mostly from L2; a miss
+// reads every valid probe, so miss traffic runs at the L2's read rate.
+// Grouping the pairs by bucket (the counting sort above) would read each
+// row once, but the sort alone takes longer than the whole kernel.
 
 #include "common.cuh"
 
@@ -845,27 +851,98 @@ fq_select(const int32_t* __restrict__ ids_flat,  // [R, C]
   }
 }
 
-#define FC_WARPS 8
+// ---- fused_contains ------------------------------------------------------
+//
+// A warp a row, `rows` rows a block (`fused_query.contains_grid`).  The
+// warp reads the row's metadata in one round (lane p: probe p's bucket
+// row; every lane: the word and the target), ranks the valid probes with
+// a ballot and keeps their bucket rows in a warp-private table in shared
+// memory.  Then the first valid probe (the exact bucket on the main
+// path) alone: a lane loads FC_VECS 16-byte vectors of it (single ids
+// where the rows are not 16-byte aligned), and the row stops at a hit.
+// The other valid probes follow FC_PROBES at a time, every load of a
+// round in flight before its first compare.  Invalid probes, and rows
+// with no valid probe, load no ids.
+#define FC_MAX_ROWS 16  // most rows (warps) a block (CONTAINS_MAX_ROWS)
+#define FC_VECS 4       // loads a lane takes along one bucket row a round
+#define FC_PROBES 2     // probes a round after the first
 
-__global__ void __launch_bounds__(FC_WARPS * 32)
+template <bool VEC>
+struct FcIds;
+template <>
+struct FcIds<true> {  // 4 ids a load
+  using T = int4;
+  static __device__ __forceinline__ int4 get(const int32_t* row, int v) {
+    return __ldg(reinterpret_cast<const int4*>(row) + v);
+  }
+  static __device__ __forceinline__ int eq(int4 x, int t) {
+    return (x.x == t) | (x.y == t) | (x.z == t) | (x.w == t);
+  }
+};
+template <>
+struct FcIds<false> {  // one id a load: C % 4 != 0, or a misaligned view
+  using T = int32_t;
+  static __device__ __forceinline__ int32_t get(const int32_t* row, int v) {
+    return __ldg(row + v);
+  }
+  static __device__ __forceinline__ int eq(int32_t x, int t) { return x == t; }
+};
+
+// Whether `tgt` lies in the bucket rows of valid probes k0 .. k0+NP-1
+// (those below n), over a lane's share of the nv loads along each.
+template <bool VEC, int NP>
+__device__ __forceinline__ int fc_scan(const int32_t* __restrict__ ids_flat,
+                                       const int* bucket, int k0, int n,
+                                       int nv, int c, int lane, int tgt) {
+  using Ids = FcIds<VEC>;
+  int hit = 0;
+  for (int v0 = lane; v0 < nv; v0 += 32 * FC_VECS) {
+    typename Ids::T x[NP][FC_VECS];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int32_t* b = ids_flat + (size_t)bucket[min(k0 + i, n - 1)] * c;
+#pragma unroll
+      for (int j = 0; j < FC_VECS; ++j)
+        if (k0 + i < n && v0 + 32 * j < nv) x[i][j] = Ids::get(b, v0 + 32 * j);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int j = 0; j < FC_VECS; ++j)
+        if (k0 + i < n && v0 + 32 * j < nv) hit |= Ids::eq(x[i][j], tgt);
+  }
+  return hit;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(FC_MAX_ROWS * 32)
 fused_contains_kernel(const int32_t* __restrict__ ids_flat,  // [R, C]
                       const int32_t* __restrict__ fb,        // [r, P]
                       const int32_t* __restrict__ meta,      // [r, 2]
-                      int32_t* __restrict__ out,             // [r]
+                      uint8_t* __restrict__ out,             // bool [r]
                       int r, int n_rows, int c, int n_probes) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * FC_WARPS + (threadIdx.x >> 5);
+  __shared__ int bucket[FC_MAX_ROWS][32];  // each warp's valid probes
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= r) return;  // whole warp
-  const int pw = meta[2 * row], tgt = meta[2 * row + 1];
-  int hit = 0;
-  for (int p = 0; p < n_probes; ++p) {
-    if (!((pw >> p) & 1)) continue;
-    const int f = min(max(fb[row * n_probes + p], 0), n_rows - 1);
-    const int32_t* ids = ids_flat + (size_t)f * c;
-    for (int s = lane; s < c; s += 32) hit |= __ldg(ids + s) == tgt;
-  }
+  const int pw = __ldg(meta + 2 * row), tgt = __ldg(meta + 2 * row + 1);
+  const int f = lane < n_probes ? __ldg(fb + row * n_probes + lane) : 0;
+  const bool valid = lane < n_probes && ((pw >> lane) & 1);
+  const unsigned vmask = __ballot_sync(FULL_MASK, valid);
+  const int n = __popc(vmask);
+  if (valid)
+    bucket[warp][__popc(vmask & ((1u << lane) - 1))] =
+        min(max(f, 0), n_rows - 1);
+  __syncwarp();
+  const int nv = VEC ? c >> 2 : c;  // loads along a bucket row
+  int hit = n > 0 ? fc_scan<VEC, 1>(ids_flat, bucket[warp], 0, n, nv, c,
+                                    lane, tgt)
+                  : 0;
+  for (int k0 = 1; k0 < n && !__any_sync(FULL_MASK, hit); k0 += FC_PROBES)
+    hit = fc_scan<VEC, FC_PROBES>(ids_flat, bucket[warp], k0, n, nv, c, lane,
+                                  tgt);
   hit = __any_sync(FULL_MASK, hit);
-  if (lane == 0) out[row] = hit;
+  if (lane == 0) out[row] = hit ? 1 : 0;
 }
 
 static int fq_smem_limit[4][SMEM_MAX_DEVICES];
@@ -976,14 +1053,24 @@ extern "C" int fused_query_launch(
   return (int)cudaGetLastError();
 }
 
+// `rows` rows a block, a warp each (`fused_query.contains_grid`).
 extern "C" int fused_contains_launch(const void* ids_flat, const void* fb,
                                      const void* meta, void* out, int r,
                                      int n_rows, int c, int n_probes,
-                                     void* stream) {
-  const int grid = (r + FC_WARPS - 1) / FC_WARPS;
-  if (grid > 0)
-    fused_contains_kernel<<<grid, FC_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)ids_flat, (const int32_t*)fb, (const int32_t*)meta,
-        (int32_t*)out, r, n_rows, c, n_probes);
+                                     int rows, void* stream) {
+  if (n_probes > 31 || n_rows < 1 || c < 1 || rows < 1 || rows > FC_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  if (r == 0) return (int)cudaGetLastError();
+  const int32_t *ids = (const int32_t*)ids_flat, *i_fb = (const int32_t*)fb,
+                *i_meta = (const int32_t*)meta;
+  uint8_t* hit = (uint8_t*)out;
+  const int blocks = (int)(((long long)r + rows - 1) / rows);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (c % 4 == 0 && (uintptr_t)ids % 16 == 0)
+    fused_contains_kernel<true><<<blocks, rows * 32, 0, st>>>(
+        ids, i_fb, i_meta, hit, r, n_rows, c, n_probes);
+  else
+    fused_contains_kernel<false><<<blocks, rows * 32, 0, st>>>(
+        ids, i_fb, i_meta, hit, r, n_rows, c, n_probes);
   return (int)cudaGetLastError();
 }

@@ -22,10 +22,16 @@ place.  The kernels read the counts of the grouping from the card, so
 the host runs ahead: the score buffer holds r*P pairs, unless that
 exceeds `SCORE_BUFFER_BYTES`; then the host waits once for the count of
 valid pairs and sizes the buffer by it (`score_buffer_rows`).
+
+fused_contains takes a warp a row, `contains_grid` rows a block: the
+first valid probe alone, stopping at a hit, then the others two at a
+time.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,6 +44,7 @@ FAST_M = 32      # largest m of the warp-list selection (FQ_FAST_M)
 # largest score buffer sized for every (row, probe) pair, without a
 # read-back of the valid pairs' count
 SCORE_BUFFER_BYTES = 1 << 28
+CONTAINS_MAX_ROWS = 16  # most rows (a warp each) of a contains block
 
 
 class PairGroups(NamedTuple):
@@ -224,15 +231,36 @@ def fused_query_cuda(ids_flat, pay_flat, q, fb, meta, *, m: int,
     return ids, scores
 
 
+@dataclasses.dataclass(frozen=True)
+class ContainsGrid:
+    """`rows` rows a block, a warp each."""
+    rows: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def contains_grid(r: int, sms: int) -> ContainsGrid:
+    """The contains kernel's blocks for r rows on a card of `sms` SMs: the
+    most rows a block (a power of two, up to CONTAINS_MAX_ROWS) that
+    still leaves a block for every SM, so that a small batch spreads
+    over the card."""
+    rows = CONTAINS_MAX_ROWS
+    while rows > 1 and -(-r // rows) < sms:
+        rows //= 2
+    return ContainsGrid(rows, -(-r // rows))
+
+
 def fused_contains_cuda(ids_flat, fb, meta) -> torch.Tensor:
-    """The kernel on contiguous CUDA tensors (see `ops.fused_contains`)."""
+    """The kernel on contiguous CUDA tensors (see `ops.fused_contains`),
+    on the blocks `contains_grid` picks."""
     n_rows, c = ids_flat.shape
     r, n_probes = fb.shape
-    hit = torch.empty((r,), dtype=torch.int32, device=fb.device)
+    hit = torch.empty((r,), dtype=torch.bool, device=fb.device)
+    g = contains_grid(r, _build.sm_count(fb.device))
     launch = _build.entry("fused_query", "fused_contains_launch",
-                          [_build.P] * 4 + [_build.I] * 4 + [_build.P])
+                          [_build.P] * 4 + [_build.I] * 5 + [_build.P])
     _build.check(launch(ids_flat.data_ptr(), fb.data_ptr(), meta.data_ptr(),
-                        hit.data_ptr(), r, n_rows, c, n_probes,
+                        hit.data_ptr(), r, n_rows, c, n_probes, g.rows,
                         _build.stream_of(fb)),
                  "fused_contains")
-    return hit > 0
+    return hit

@@ -181,6 +181,8 @@ def fused_contains(ids_flat: torch.Tensor, fb: torch.Tensor,
     _check_rows("fused_contains", ids_flat, fb, meta)
     if not _on_card("fused_contains", ids_flat, fb, meta):
         return _fq.fused_contains_plain(ids_flat, fb, meta)
+    if fb.shape[0] == 0 or ids_flat.numel() == 0:  # nothing to launch
+        return torch.zeros(fb.shape[0], dtype=torch.bool, device=fb.device)
     out = _fq.fused_contains_cuda(ids_flat, fb, meta)
     LAUNCHES["fused_contains"] += 1
     return out

@@ -103,11 +103,6 @@ def grid(n: int, d: int, k: int, L: int, packed: bool,
                        -(-(-(-n // rows) * len(spans)) // WARP_BLOCK), 0)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def simhash_plain(x: torch.Tensor, hyperplanes: torch.Tensor, *,
                   packed: bool = False) -> torch.Tensor:
     """int32 codes [n, L], or packed words [n, W] with packed=True."""
@@ -122,9 +117,7 @@ def simhash_cuda(x: torch.Tensor, hyperplanes: torch.Tensor, *,
     L, k, _ = hyperplanes.shape
     width = num_words(k, L) if packed else L
     out = torch.empty((n, width), dtype=torch.int32, device=x.device)
-    g = grid(n, d, k, L, packed, _sm_count(x.device.index
-                                           if x.device.index is not None
-                                           else torch.cuda.current_device()))
+    g = grid(n, d, k, L, packed, _build.sm_count(x.device))
     launch = _build.entry("simhash", "simhash_launch", [_build.P] * 3 + [
         _build.I] * 10 + [_build.P])
     _build.check(launch(x.data_ptr(), hyperplanes.data_ptr(), out.data_ptr(),

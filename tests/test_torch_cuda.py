@@ -17,7 +17,7 @@ from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import ops
 from repro_torch.kernels import simhash as sh
-from torch_fused_cases import edge_case_rows
+from torch_fused_cases import CONTAINS_CASES, contains_case, edge_case_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -209,6 +209,20 @@ def test_fused_contains_kernel_matches_plain(dev):
     meta = torch.stack([pw, tgt], dim=1).to(dev)
     assert torch.equal(ops.fused_contains(ids, fb, meta),
                        fq.fused_contains_plain(ids, fb, meta))
+
+
+@pytest.mark.parametrize("case", list(CONTAINS_CASES))
+def test_fused_contains_kernel_on_cases(dev, case):
+    """Equal to the plain version under hit and miss traffic at the main
+    path's shape (4096 rows, 13 probes, 512 ids) and on each edge case of
+    `contains_case`; one launch a call, none for no rows."""
+    ids, fb, meta = contains_case(case, device=dev)
+    ops.reset_launches()
+    got = ops.fused_contains(ids, fb, meta)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_contains"] == (1 if fb.shape[0] else 0)
+    assert got.dtype == torch.bool and got.shape == (fb.shape[0],)
+    assert torch.equal(got, fq.fused_contains_plain(ids, fb, meta))
 
 
 @pytest.mark.parametrize("b,kc,m", [

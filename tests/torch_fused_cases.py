@@ -1,6 +1,8 @@
-"""Inputs that exercise each rule of fused_query's semantics, shared by
-the CUDA tests (`test_torch_cuda.py`) and `chip_smoke.py`, which hold the
-kernels against `fused_query_plain` on them."""
+"""Inputs that exercise each rule of fused_query's and fused_contains's
+semantics.  The CUDA tests (`test_torch_cuda.py`) hold the kernels
+against their plain versions on them, `chip_smoke.py` holds fused_query
+on `edge_case_rows`, and `test_torch_contains.py` holds fused_contains's
+plain path on `contains_case` against JAX."""
 
 from __future__ import annotations
 
@@ -55,3 +57,82 @@ def edge_case_rows(score: str = "dot", *, seed: int = 0, n_fill: int = 40,
     meta = np.stack([pw, excl], axis=1)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (ids.astype(np.int32), pay, q, fb, meta))
+
+
+# fused_contains cases: name -> (rows r, probes P, ids a bucket row C)
+CONTAINS_CASES = {
+    "hit": (300, 13, 64), "miss": (300, 13, 64),
+    "empty_target": (60, 13, 64), "no_valid_probe": (60, 13, 64),
+    "one_valid_probe": (60, 13, 64), "probe_twice": (60, 13, 64),
+    "hot_bucket": (60, 13, 64), "c33": (200, 13, 33),
+    "misaligned": (200, 13, 64), "no_rows": (0, 13, 64),
+    "p1": (200, 1, 64), "p31": (200, 31, 64),
+    "main_hit": (4096, 13, 512), "main_miss": (4096, 13, 512),
+}
+
+
+def contains_case(name: str, *, seed: int = 0, device="cpu"):
+    """(ids_flat, fb, meta) of fused_contains case `name`, for holding the
+    kernel against the plain version and the plain version against JAX.
+
+    A store of distinct ids (a third of the slots empty, -1; bucket row 0
+    full) probed by random rows under random validity words.  "hit" rows
+    (and "main_hit", at the main path's shape) look for an id in one of
+    their valid probes, "miss" rows for ids that no bucket holds; the
+    other cases mix both and add one rule each: target -1 (found only in
+    a valid probe with an empty slot), rows with no valid probe whose
+    buckets hold the target, rows with exactly one valid probe (the
+    target in it, or only in an invalid one), a bucket probed twice, 40
+    rows on one bucket, C = 33 and an `ids_flat` view 4 bytes off a
+    16-byte boundary (both take single-id loads), no rows, P = 1 and
+    P = 31."""
+    r, n_probes, c = CONTAINS_CASES[name]
+    gen = np.random.default_rng(seed)
+    n_rows = 16 * 1024 if name.startswith("main") else 50
+    ids = gen.permutation(2 * n_rows * c)[:n_rows * c].reshape(n_rows, c)
+    ids[gen.random((n_rows, c)) < 1 / 3] = -1
+    ids[0] = gen.permutation(np.arange(2 * n_rows * c, 2 * n_rows * c + c))
+    fb = gen.integers(0, n_rows, (r, n_probes))
+    full = (1 << n_probes) - 1
+    pw = full if name.startswith("main") else gen.integers(1, full + 1, r)
+    pw = np.broadcast_to(pw, (r,)).copy()
+    # a target from a random valid probe's random live slot, or one that
+    # no bucket holds (ids run below 2 * n_rows * c + c)
+    tgt = np.full(r, 10 ** 9, dtype=np.int64) + np.arange(r)
+    for i in range(r):
+        valid = [p for p in range(n_probes) if (pw[i] >> p) & 1]
+        row = ids[fb[i, gen.choice(valid)]]
+        live = row[row >= 0]
+        if live.size and name not in ("miss", "main_miss") and (
+                name in ("hit", "main_hit") or gen.random() < 0.5):
+            tgt[i] = gen.choice(live)
+    if name == "empty_target":
+        tgt[:] = -1
+        fb[::2] = 0  # every probe on the full row: no empty slot, a miss
+    elif name == "no_valid_probe":
+        pw[::2] = 0
+        tgt[::2] = ids[fb[::2, 0], 0]
+    elif name == "one_valid_probe":
+        pw[:] = 1 << gen.integers(0, n_probes, r)
+        pw[::4] = 1
+        fb[:, 0] = 0
+        tgt[::2] = ids[0, 7]  # in probe 0's bucket, valid in some rows
+    elif name == "probe_twice":
+        fb[:, 1] = fb[:, 0]
+        pw[:] = 0b10
+        tgt[::3] = ids[fb[::3, 0], c - 1]
+    elif name == "hot_bucket":
+        fb[:40, 0] = 0
+        pw[:40] |= 1
+        tgt[:40:2] = ids[0, gen.integers(0, c, 20)]
+    meta = np.stack([pw, tgt], axis=1).astype(np.int32)
+    ids = ids.astype(np.int32)
+    if name == "misaligned":  # 4 bytes past a 16-byte boundary
+        flat = torch.from_numpy(np.concatenate([[0], ids.ravel()]).astype(
+            np.int32))
+        flat = flat.to(device)
+        ids_t = flat[1:].view(n_rows, c)
+    else:
+        ids_t = torch.from_numpy(ids).to(device)
+    return (ids_t, torch.from_numpy(fb.astype(np.int32)).to(device),
+            torch.from_numpy(meta).to(device))
