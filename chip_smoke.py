@@ -22,7 +22,10 @@ failure:
      hamming_words at the CNB cache stage's shape of the 16-node mesh,
      hamming at [4096] x [4096, 6656]; simhash and bucket_topk also print
      the grid their module picked and the bytes/s and FLOP/s they reached
-     beside the card's peaks, and simhash its wrapper's host cost a call;
+     beside the card's peaks, and simhash its wrapper's host cost a call,
+     and its times at the OSN widths: 8192 densified users of the
+     LIVEJOURNAL_S (d = 24 576, k = 11) and FRIENDSTER_S (d = 49 152,
+     k = 12) shapes;
   5. runtime search through `IndexRuntime(use_kernels=True)`, dot and
      hamming, for lsh / nb / cnb and ranked cnb: ms per batch, queries/s,
      self-hit@1 and recall@10 against brute-force top-10; each cell
@@ -47,7 +50,20 @@ failure:
      cache or NB stage, bucket_topk or hamming_words, against the plain
      version on the very inputs the path gives them, recorded from one
      batch, with times;
- 10. the kernels line.  Each path of phases 5-9 runs with the launch
+ 10. the paper's workload: the LIVEJOURNAL_S OSN corpus (117 000
+     users, 24 576 interests, k = 11; `repro_torch.data.osn`) with L = 4,
+     hyperplane seed 13 and bucket capacity 256, as
+     `benchmarks/common.py` builds it.  The corpus sketch through the
+     simhash kernel in chunks of 8192 densified rows (every chunk held
+     against plain, with times against the bound); recall@10, NCS@10
+     and messages of lsh / layered / nb / cnb on 1024 queries against
+     the sparse oracle (each query's own id excluded), failing unless
+     cnb beats lsh at equal messages; the Fig. 4 success probability of
+     lsh and nb through `LshEngine.contains` (fused_contains) by cosine
+     interval beside `analysis`, failing on a mean gap above 0.15; 64
+     queries of the card's cnb search against the port's CPU run; ms
+     per batch of the staged sparse search and of contains;
+ 11. the kernels line.  Each path of phases 5-10 runs with the launch
      counts set to 0 just before it and read just after, and fails
      unless each kernel it should go through was launched; a kernel's
      `launches` is the sum over the paths, `launches_by_path` the counts
@@ -66,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -166,11 +183,12 @@ def profile_batch(torch, path: str, fn, top: int = 10) -> None:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def compare_topk(ki, ks, pi, ps, what: str) -> tuple[float, int]:
+def compare_topk(ki, ks, pi, ps, what: str,
+                 tie: float = TIE) -> tuple[float, int]:
     """Hold kernel (ki, ks) against plain (pi, ps) top-m rows.
 
-    Scores agree to TIE.  Ids agree exactly, except at ranks where the
-    plain scores of a neighbouring rank lie within TIE (the order of
+    Scores agree to `tie`.  Ids agree exactly, except at ranks where the
+    plain scores of a neighbouring rank lie within `tie` (the order of
     near-equal scores depends on summation order), and at the last rank,
     whose tie partner may be the unseen rank m + 1.  Returns (max score
     error, count of such near-tie exceptions)."""
@@ -180,10 +198,10 @@ def compare_topk(ki, ks, pi, ps, what: str) -> tuple[float, int]:
     if not np.array_equal(live, np.isfinite(ks)):
         raise AssertionError(f"{what}: live lanes differ")
     err = float(np.max(np.abs(ks[live] - ps[live]), initial=0.0))
-    if err > TIE:
-        raise AssertionError(f"{what}: max score error {err} > {TIE}")
+    if err > tie:
+        raise AssertionError(f"{what}: max score error {err} > {tie}")
     near = np.zeros_like(live)
-    gap = np.abs(np.diff(np.where(live, ps, 0.0), axis=1)) <= TIE
+    gap = np.abs(np.diff(np.where(live, ps, 0.0), axis=1)) <= tie
     near[:, 1:] |= gap
     near[:, :-1] |= gap
     near[:, -1] = True
@@ -216,6 +234,7 @@ def main() -> int:
     from repro_torch.core.hashing import LshParams, make_hyperplanes
     from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
     from repro_torch.core.store import BucketStore, build_store_host
+    from repro_torch.data import osn
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import bucket_topk as bt_mod
     from repro_torch.kernels import fused_query as fq_mod
@@ -285,25 +304,30 @@ def main() -> int:
     # simhash, at the query batch and at the corpus build
     cfg = RuntimeConfig(params=params, variant="cnb", use_kernels=True)
 
-    def simhash_check(xs, packed, got=None):
-        """Hold the kernel's codes `got` of xs (launched here if None)
-        against the plain version: every flipped bit within the band."""
+    def simhash_check(xs, packed, got=None, hh=None):
+        """Hold the kernel's codes `got` of xs against hyperplanes `hh`
+        (default h; launched here if None) against the plain version:
+        every flipped bit within the band.  Returns (flipped bits, the
+        largest |projection| among them)."""
+        hh = h if hh is None else hh
+        Lh, Kh, _ = hh.shape
         if got is None:
-            got = ops.simhash(xs, h, packed=packed)
-        want = sh_mod.simhash_plain(xs, h, packed=packed)
+            got = ops.simhash(xs, hh, packed=packed)
+        want = sh_mod.simhash_plain(xs, hh, packed=packed)
         flips = torch.bitwise_xor(got, want)
         if not bool(flips.any()):
             return 0, 0.0
-        proj = torch.einsum("nd,lkd->nlk", xs.double(), h.double())
+        proj = torch.einsum("nd,lkd->nlk", xs.double(), hh.double())
         band = 1e-5 * torch.linalg.vector_norm(xs.double(), dim=1)[:, None, None] \
-            * torch.linalg.vector_norm(h.double(), dim=2)[None]
+            * torch.linalg.vector_norm(hh.double(), dim=2)[None]
         flat_proj = proj.reshape(xs.shape[0], -1)
         flat_band = band.reshape(xs.shape[0], -1)
         if packed:
-            fl = packed_mod.unpack_codes(flips, K, L)
+            fl = packed_mod.unpack_codes(flips, Kh, Lh)
         else:
             fl = flips
-        bits = ((fl.long()[..., None] >> torch.arange(K, device=dev)) & 1)
+        bits = ((fl.long()[..., None] >> torch.arange(Kh, device=fl.device))
+                & 1)
         bits = bits.reshape(xs.shape[0], -1) > 0
         n_flip = int(bits.sum())
         outside = bits & (flat_proj.abs() > flat_band)
@@ -358,6 +382,38 @@ def main() -> int:
                                                       sms))
     log(f"[kernel] simhash host cost a call at n={NQ}: {sh_host:.2f} us "
         f"(the grid choice {sh_grid_host:.2f} us)")
+    # at the OSN corpora's widths: densified interest vectors of 8192
+    # users of the LIVEJOURNAL_S and FRIENDSTER_S shapes, L = 4
+    sh_osn = []
+    for spec in (osn.LIVEJOURNAL_S, osn.FRIENDSTER_S):
+        cut = osn.generate(dataclasses.replace(spec, num_users=8192),
+                           device=dev)
+        xo = cut.densify(torch.arange(cut.n, device=dev))
+        ho = make_hyperplanes(LshParams(d=spec.num_interests, k=spec.k, L=L,
+                                        seed=13), device=dev)
+        ho_t = ho.reshape(-1, ho.shape[2]).T.contiguous()
+        n_o, e_o = simhash_check(xo, False, hh=ho)
+        n_ow, e_ow = simhash_check(xo, True, hh=ho)
+        o_ms = cuda_ms(torch, lambda: ops.simhash(xo, ho), 10)
+        o_plain = cuda_ms(torch, lambda: sh_mod.simhash_plain(xo, ho), 5)
+        o_lib = cuda_ms(torch, lambda: torch.matmul(xo, ho_t), 10)
+        n_o_, d_o = xo.shape
+        lk_o = L * spec.k
+        o_b, o_by = bound(n_o_ * d_o * 4 + lk_o * d_o * 4 + n_o_ * L * 4,
+                          2.0 * n_o_ * d_o * lk_o)
+        g_o = sh_mod.grid(n_o_, d_o, spec.k, L, False, sms)
+        log(f"[kernel] simhash at {spec.name} width: n={n_o_} d={d_o} "
+            f"k={spec.k} L={L}: flipped bits within the 1e-5 band: codes "
+            f"{n_o}, words {n_ow} (max |proj| {max(e_o, e_ow):.3g}); "
+            f"{o_ms:.4f} ms, plain {o_plain:.4f} ms, matmul {o_lib:.4f} ms, "
+            f"bound {o_b:.4f} ms ({o_by}), {o_b / o_ms:.1%} of it; grid "
+            f"{g_o.blocks} blocks ({g_o})")
+        sh_osn.append(dict(spec=spec.name, n=n_o_, d=d_o, k=spec.k, L=L,
+                           ms=o_ms, plain_ms=o_plain, library_ms=o_lib,
+                           bound_ms=o_b, bound_by=o_by, grid=str(g_o),
+                           flipped_bits=n_o + n_ow))
+        e_c = max(e_c, e_o, e_ow)
+        del cut, xo, ho, ho_t
     kernels["simhash"] = dict(
         name="simhash", route="cuda",
         source="src/repro_torch/kernels/csrc/simhash.cu",
@@ -366,7 +422,7 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=sh_lib, words_ms=shw_ms,
         corpus_ms=shc_ms, corpus_plain_ms=shc_plain, corpus_bound_ms=bc_ms,
         corpus_library_ms=shc_lib, host_us=sh_host,
-        grid_host_us=sh_grid_host)
+        grid_host_us=sh_grid_host, osn_widths=sh_osn)
 
     # fused_query / fused_contains on the main path's rows
     plan, flat = rt_mod._flat_plan(cfg, rt_mod.LOCAL, q, h)
@@ -688,14 +744,24 @@ def main() -> int:
     def hold_at_path_shapes(path, fn, names):
         """Hold the kernels behind the wrappers `names` against their plain
         versions on the very inputs the path gives them (one batch of
-        `fn`): dot to TIE with near-tie id swaps allowed, hamming
-        exactly; fused_query's plain version runs in row chunks."""
+        `fn`): dot to TIE with near-tie id swaps allowed, hamming and
+        contains exactly; fused_query's plain version runs in row
+        chunks."""
         for (name, shapes, _), (a, kw) in recorded_inputs(fn, names).items():
             if name == "fused_query":
                 err, ties = hold_fused(a, kw, f"fused_query on {path}")
                 k_ms = cuda_ms(torch, lambda: ops.fused_query(*a, **kw), 5)
                 p_ms = cuda_ms(torch, lambda: fused_plain(a, kw), 1)
                 shapes = shapes + ((kw["m"], kw.get("score", "dot")),)
+            elif name == "fused_contains":
+                if not torch.equal(ops.fused_contains(*a),
+                                   fq_mod.fused_contains_plain(*a)):
+                    raise AssertionError(f"fused_contains on {path}: kernel "
+                                         f"!= plain")
+                err, ties = 0.0, 0
+                k_ms = cuda_ms(torch, lambda: ops.fused_contains(*a), 5)
+                p_ms = cuda_ms(torch, lambda: fq_mod.fused_contains_plain(*a),
+                               1)
             elif name == "bucket_topk":
                 qa, cand, valid, m = a
                 ks, ki = ops.bucket_topk(qa, cand, valid, m)
@@ -982,7 +1048,178 @@ def main() -> int:
             f"(near-tie swaps {ties}, max score err {err:.3g})")
     del cache4
 
-    # -- 10. kernels line ---------------------------------------------------
+    # -- 10. the paper's workload: LIVEJOURNAL_S, sparse interest vectors --
+    from repro_torch.core import analysis, metrics
+    from repro_torch.core.can import paper_topology
+    from repro_torch.core.corpus import SparseCorpus, exact_topk_sparse
+    from repro_torch.core.hashing import sketch_codes, sketch_codes_batched
+
+    spec = osn.LIVEJOURNAL_S
+    t0 = time.time()
+    lj = osn.generate(spec, device=dev)
+    gen_s = time.time() - t0
+    lj_params = LshParams(d=spec.num_interests, k=spec.k, L=4, seed=13)
+    lj_h = make_hyperplanes(lj_params, device=dev)
+    d_lj, k_lj, L_lj, SK, CAP_LJ = spec.num_interests, spec.k, 4, 8192, 256
+    # the corpus sketch: densified SK rows at a time, through the kernel
+    torch.cuda.synchronize()
+    with gc_paused():
+        t0 = time.perf_counter()
+        lj_codes = counted("paper sketch", ("simhash",),
+                           lambda: sketch_codes_batched(lj, lj_h, batch=SK))
+        sketch_wall = (time.perf_counter() - t0) * 1e3
+    n_f, e_f, sk_ms, sk_plain, sk_lib = 0, 0.0, 0.0, 0.0, 0.0
+    lj_h_t = lj_h.reshape(-1, d_lj).T.contiguous()
+    for s0 in range(0, lj.n, SK):  # every chunk's codes against plain
+        xs = lj.densify(torch.arange(s0, min(s0 + SK, lj.n), device=dev))
+        a, b = simhash_check(xs, False, got=lj_codes[s0:s0 + SK], hh=lj_h)
+        n_f, e_f = n_f + a, max(e_f, b)
+        sk_ms += cuda_ms(torch, lambda: ops.simhash(xs, lj_h), 3)
+        sk_plain += cuda_ms(torch, lambda: sh_mod.simhash_plain(xs, lj_h), 1)
+        sk_lib += cuda_ms(torch, lambda: torch.matmul(xs, lj_h_t), 3)
+    del xs
+    lk_lj = L_lj * k_lj
+    sk_b, sk_by = bound(lj.n * d_lj * 4 + lk_lj * d_lj * 4 + lj.n * L_lj * 4,
+                        2.0 * lj.n * d_lj * lk_lj)
+    g_sk = sh_mod.grid(SK, d_lj, k_lj, L_lj, False, sms)
+    log(f"[paper] {spec.name}: {lj.n} users, d={d_lj}, nnz_max "
+        f"{lj.nnz_ids.shape[1]}, generated in {gen_s:.1f} s; sketch k={k_lj} "
+        f"L={L_lj} in chunks of {SK} densified rows: {sketch_wall:.1f} ms "
+        f"wall; kernel {sk_ms:.4f} ms over {-(-lj.n // SK)} launches, plain "
+        f"{sk_plain:.4f} ms, matmul {sk_lib:.4f} ms, bound {sk_b:.4f} ms "
+        f"({sk_by}), {sk_b / sk_ms:.1%} of it; grid {g_sk.blocks} blocks "
+        f"({g_sk}); flipped bits within the 1e-5 band {n_f} (max |proj| "
+        f"{e_f:.3g})")
+    kernels["simhash"].update(
+        paper_sketch_ms=sk_ms, paper_sketch_plain_ms=sk_plain,
+        paper_sketch_library_ms=sk_lib, paper_sketch_bound_ms=sk_b,
+        paper_sketch_bound_by=sk_by, paper_sketch_grid=str(g_sk),
+        paper_sketch_wall_ms=sketch_wall)
+    kernels["simhash"]["max_abs_err"] = max(kernels["simhash"]["max_abs_err"],
+                                            e_f)
+    lj_store = build_store_host(lj_codes, lj_params.num_buckets, CAP_LJ,
+                                device=dev)
+    occ_lj = lj_store.occupancy().float()
+
+    # the queries (benchmarks/common.py): rng seed 4, unit dense rows;
+    # the ideal top-10 of each without itself, from the sparse oracle
+    qidx_lj = np.random.default_rng(4).choice(lj.n, NQ, replace=False)
+    qd = lj.densify(torch.from_numpy(qidx_lj).to(dev))
+    qd /= torch.linalg.vector_norm(qd, dim=1, keepdim=True).clamp(min=1e-12)
+    t0 = time.perf_counter()
+    ideal_s = np.empty((NQ, M), np.float32)
+    ideal_i = np.empty((NQ, M), np.int32)
+    for s0 in range(0, NQ, 256):
+        o_s, o_i = exact_topk_sparse(lj, qd[s0:s0 + 256], M + 1)
+        o_s, o_i = o_s.cpu().numpy(), o_i.cpu().numpy()
+        for j in range(o_s.shape[0]):
+            keep = o_i[j] != qidx_lj[s0 + j]
+            ideal_s[s0 + j] = o_s[j][keep][:M]
+            ideal_i[s0 + j] = o_i[j][keep][:M]
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[paper] store C={CAP_LJ}: occupancy mean {float(occ_lj.mean()):.1f} "
+        f"max {int(occ_lj.max())}; {NQ} queries, oracle top-{M} in "
+        f"{oracle_ms:.1f} ms")
+
+    topo_lj = paper_topology(k_lj)
+    quality = {}
+    for variant in ("lsh", "layered", "nb", "cnb"):
+        eng = LshEngine(lj_params, lj_h, lj_store, lj, topo_lj,
+                        EngineConfig(variant=variant), device=dev)
+        res = counted(f"paper search {variant}", (),
+                      lambda: eng.search(qd, m=M, exclude=qidx_lj))
+        with gc_paused():
+            t0 = time.perf_counter()
+            for _ in range(args.batches):
+                eng.search(qd, m=M, exclude=qidx_lj)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        if variant in ("lsh", "cnb"):  # device time by kernel, busy share
+            profile_batch(torch, f"paper search {variant}",
+                          lambda: eng.search(qd, m=M, exclude=qidx_lj))
+        if res.ids.shape != (NQ, M) or not np.isfinite(res.scores[:, 0]).all():
+            raise AssertionError(f"paper search {variant}: bad results")
+        quality[variant] = dict(
+            recall=metrics.recall_at_m(res.ids, ideal_i),
+            ncs=metrics.ncs_at_m(res.scores, ideal_s),
+            messages=res.cost.messages, ms=ms, res=res)
+        log(f"[paper] {variant:8s}: recall@10 {quality[variant]['recall']:.4f}"
+            f" NCS@10 {quality[variant]['ncs']:.4f} messages "
+            f"{res.cost.messages:g}; {ms:.3f} ms per batch of {NQ} (staged "
+            f"sparse scoring), {NQ / ms * 1e3:.0f} queries/s")
+    lsh_q, cnb_q = quality["lsh"], quality["cnb"]
+    if not (cnb_q["messages"] == lsh_q["messages"]
+            and cnb_q["recall"] > lsh_q["recall"]
+            and cnb_q["ncs"] >= lsh_q["ncs"] - 1e-9):
+        raise AssertionError(f"paper claim fails: cnb {cnb_q} lsh {lsh_q}")
+    log(f"[paper] cnb over lsh at equal messages ({cnb_q['messages']:g}): "
+        f"recall {cnb_q['recall'] / lsh_q['recall'] - 1:+.1%}, NCS "
+        f"{cnb_q['ncs'] / lsh_q['ncs'] - 1:+.1%}")
+
+    # Fig. 4: is each query's top non-self neighbour in a searched bucket?
+    y, y_sim = ideal_i[:, 0], ideal_s[:, 0]
+    s_ang = analysis.angular_from_cosine(np.clip(y_sim, 0, 1))
+    fig4 = {}
+    for variant, spf in (("lsh", analysis.sp_lsh),
+                         ("nb", analysis.sp_nearbucket)):
+        eng = LshEngine(lj_params, lj_h, lj_store, lj, topo_lj,
+                        EngineConfig(variant=variant), device=dev)
+        found = counted(f"paper contains {variant}", ("fused_contains",),
+                        lambda: eng.contains(qd, y))
+        hold_at_path_shapes(f"paper contains {variant}",
+                            lambda: eng.contains(qd, y), ("fused_contains",))
+        with gc_paused():
+            t0 = time.perf_counter()
+            for _ in range(args.batches):
+                eng.contains(qd, y)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        profile_batch(torch, f"paper contains {variant}",
+                      lambda: eng.contains(qd, y))
+        centers, frac, counts = metrics.success_probability_by_interval(
+            found, y_sim)
+        gap = abs(float(found.mean()) - float(spf(s_ang, k_lj, L_lj).mean()))
+        fig4[variant] = (frac, spf(analysis.angular_from_cosine(centers),
+                                   k_lj, L_lj), gap)
+        log(f"[paper] contains {variant}: success {float(found.mean()):.4f}, "
+            f"analysis {float(spf(s_ang, k_lj, L_lj).mean()):.4f}, gap "
+            f"{gap:.4f}; {ms:.3f} ms per batch of {NQ}, "
+            f"{NQ / ms * 1e3:.0f} contains/s")
+        if gap > 0.15:
+            raise AssertionError(f"Fig. 4 {variant}: mean gap {gap} > 0.15")
+    log("[paper] Fig. 4 by cosine interval: center, pairs, lsh observed / "
+        "sp_lsh, nb observed / sp_nearbucket")
+    for b, c in enumerate(centers):
+        log(f"[paper]   {c:.2f} {int(counts[b]):5d}  "
+            f"{fig4['lsh'][0][b]:.4f} / {fig4['lsh'][1][b]:.4f}  "
+            f"{fig4['nb'][0][b]:.4f} / {fig4['nb'][1][b]:.4f}")
+
+    # the card's cnb search against the port's own CPU run on 64 queries:
+    # the query codes first, so that a flip shows as a flip
+    n_cpu = 64
+    lj_cpu = SparseCorpus(lj.nnz_ids.cpu(), lj.nnz_vals.cpu(), d_lj)
+    store_cpu = build_store_host(lj_codes, lj_params.num_buckets, CAP_LJ,
+                                 device="cpu")
+    q_cpu, h_cpu = qd[:n_cpu].cpu(), lj_h.cpu()
+    qc_card = sketch_codes(qd[:n_cpu], lj_h).cpu()
+    same = (qc_card == sketch_codes(q_cpu, h_cpu)).all(dim=1).numpy()
+    simhash_check(q_cpu, False, got=qc_card, hh=h_cpu)  # flips in the band
+    cpu_res = LshEngine(lj_params, h_cpu, store_cpu, lj_cpu, topo_lj,
+                        EngineConfig(variant="cnb"), device="cpu").search(
+        q_cpu, m=M, exclude=qidx_lj[:n_cpu])
+    card_res = cnb_q["res"]
+    c_err, c_ties = compare_topk(
+        torch.from_numpy(card_res.ids[:n_cpu][same]),
+        torch.from_numpy(card_res.scores[:n_cpu][same]),
+        torch.from_numpy(cpu_res.ids[same]),
+        torch.from_numpy(cpu_res.scores[same]), "paper cnb card vs CPU",
+        tie=1e-6)
+    log(f"[paper] cnb on the card vs the port on the CPU, {n_cpu} queries: "
+        f"query codes equal in {int(same.sum())}; ids equal there (near-tie "
+        f"swaps {c_ties}, max score err {c_err:.3g})")
+    del lj, lj_store, lj_codes, qd, lj_cpu, store_cpu
+
+    # -- 11. kernels line ---------------------------------------------------
     for name, k in kernels.items():
         k["launches"] = sum(got[name] for got in by_path.values())
         k["launches_by_path"] = {p: got[name] for p, got in by_path.items()}
@@ -990,7 +1227,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[kernels] launches in phases 5-9: "
+    log(f"[kernels] launches in phases 5-10: "
         f"{ {n: k['launches'] for n, k in kernels.items()} }")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -1,9 +1,9 @@
 """Carry state across from the JAX package.
 
 The port's counterpart of loading weights: hyperplanes, a bucket store
-and a dense corpus built by `repro` (JAX arrays, or numpy arrays in the
-same layout) become the port's objects, so both packages compute on the
-same state.  Nothing here imports JAX: `np.asarray` reads a JAX array
+and a dense or sparse corpus built by `repro` (JAX arrays, or numpy
+arrays in the same layout) become the port's objects, so both packages
+compute on the same state.  Nothing here imports JAX: `np.asarray` reads a JAX array
 without it.  uint32 codes and words become int32 bit patterns.
 """
 
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.corpus import DenseCorpus
+from repro_torch.core.corpus import DenseCorpus, SparseCorpus
 from repro_torch.core.store import BucketStore
 
 
@@ -50,3 +50,15 @@ def corpus_from(vectors, *, device=None) -> DenseCorpus:
     `DenseCorpus`."""
     vectors = getattr(vectors, "vectors", vectors)
     return DenseCorpus(_tensor(vectors, resolve_device(device)).float())
+
+
+def sparse_corpus_from(c=None, *, nnz_ids=None, nnz_vals=None, d=None,
+                       device=None) -> SparseCorpus:
+    """A SparseCorpus-like `c` (attributes nnz_ids, nnz_vals, d), or numpy
+    `nnz_ids` int32 / `nnz_vals` f32 [n, nnz_max] and `d` ->
+    `SparseCorpus`."""
+    if c is not None:
+        nnz_ids, nnz_vals, d = c.nnz_ids, c.nnz_vals, c.d
+    dev = resolve_device(device)
+    return SparseCorpus(_tensor(nnz_ids, dev).to(torch.int32),
+                        _tensor(nnz_vals, dev).float(), d=int(d))

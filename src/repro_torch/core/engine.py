@@ -9,7 +9,9 @@ Table 1:
   * cnb           : + the k 1-near buckets of each (served from local cache).
 With `use_kernels=True` the sketch runs through the simhash kernel and
 score/top-m through the bucket_topk kernel; ids are identical to the
-reference path.
+reference path.  A `SparseCorpus` (the paper's OSN interest vectors) is
+scored in plain torch, as the reference scores it outside any kernel,
+and refuses `use_kernels`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.core import costmodel, hashing
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import runtime as runtime_mod
 from repro_torch.core.can import CanTopology
-from repro_torch.core.corpus import DenseCorpus
+from repro_torch.core.corpus import DenseCorpus, SparseCorpus
 from repro_torch.core.hashing import LshParams
 from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
 from repro_torch.core.store import BucketStore
@@ -48,7 +50,7 @@ class SearchResult:
 
 
 class LshEngine:
-    """Engine over an id-only BucketStore + a dense corpus.
+    """Engine over an id-only BucketStore + a dense or sparse corpus.
 
     The corpus is the id-keyed payload source (the latest announced vector
     of each id).  Computes on the store's device.
@@ -59,7 +61,7 @@ class LshEngine:
         params: LshParams,
         hyperplanes: torch.Tensor,
         store: BucketStore,
-        corpus: DenseCorpus,
+        corpus: DenseCorpus | SparseCorpus,
         topology: CanTopology | None = None,
         config: EngineConfig = EngineConfig(),
         *,
@@ -67,8 +69,10 @@ class LshEngine:
     ):
         if config.variant not in costmodel.VARIANTS:
             raise ValueError(f"unknown variant {config.variant!r}")
-        if not isinstance(corpus, DenseCorpus):
-            raise NotImplementedError("SparseCorpus is not ported yet")
+        if config.use_kernels and not isinstance(corpus, DenseCorpus):
+            raise ValueError(
+                "use_kernels requires a DenseCorpus: the bucket_topk "
+                "kernel scores dense candidate payloads")
         self.params = params
         self.hyperplanes = hyperplanes
         self.store = store

@@ -115,3 +115,44 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (((x * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+
+
+def sketch_codes_batched(x, hyperplanes: torch.Tensor,
+                         batch: int = 65536) -> torch.Tensor:
+    """Chunked sketching of a large corpus (the preprocessing path).
+
+    `x` is a dense [n, d] tensor, or a corpus with `densify` (a
+    `SparseCorpus`), whose rows are densified `batch` at a time on its
+    device.  Each chunk goes through `ops.simhash`: the CUDA kernel on
+    CUDA tensors, its plain version on CPU ones.  Returns int32 codes
+    [n, L] on the hyperplanes' device, as `build_store_host` takes them.
+    """
+    from repro_torch.kernels import ops
+
+    sparse = hasattr(x, "densify")
+    n = x.n if sparse else x.shape[0]
+    h = hyperplanes.float().contiguous()
+    out = torch.empty((n, h.shape[0]), dtype=torch.int32, device=h.device)
+    for s in range(0, n, batch):
+        e = min(s + batch, n)
+        if sparse:
+            chunk = x.densify(torch.arange(s, e, device=x.nnz_ids.device))
+        else:
+            chunk = x[s:e]
+        out[s:e] = ops.simhash(chunk.to(h.device, torch.float32).contiguous(),
+                               h)
+    return out
+
+
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Popcount Hamming distance between packed codes (int32 bit
+    patterns) -> int32."""
+    return popcount32(torch.bitwise_xor(a.to(torch.int32), b.to(torch.int32)))
+
+
+def collision_probability(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Analytical Pr[h(u)=h(v)] = angular similarity (Eq. 2/3 of the
+    paper)."""
+    un, vn = normalize(u), normalize(v)
+    cos = torch.clamp(torch.sum(un * vn, dim=-1), -1.0, 1.0)
+    return 1.0 - torch.arccos(cos) / torch.pi

@@ -242,13 +242,18 @@ def _global_probes(cfg, nb: int, local_idx, mask, zone):
 
 def _pool_topk(cfg, corpus, q, flat_ids, slot_vecs, m):
     """Score a flattened candidate pool and keep the top m distinct ids,
-    with payloads from the id-keyed `corpus` or from the bucket slots."""
+    with payloads from the id-keyed `corpus` (dense or sparse) or from
+    the bucket slots.  A sparse corpus scores each row's candidates
+    against the row's dense query in plain torch, as the reference
+    does outside any kernel."""
     if corpus is not None:
-        if not isinstance(corpus, DenseCorpus):
-            raise NotImplementedError("SparseCorpus is not ported yet")
-        vecs = corpus.gather(flat_ids)
-        return scoring.score_topk(q, flat_ids, vecs, m,
-                                  use_kernels=cfg.use_kernels)
+        if isinstance(corpus, DenseCorpus):
+            vecs = corpus.gather(flat_ids)
+            return scoring.score_topk(q, flat_ids, vecs, m,
+                                      use_kernels=cfg.use_kernels)
+        scores = corpus.scores_against_dense(q, flat_ids)  # [r, K]
+        scores = scores.masked_fill(flat_ids < 0, NEG_INF)
+        return dedupe_topk(flat_ids, scores, m)
     return scoring.score_topk(q, flat_ids, slot_vecs, m,
                               use_kernels=cfg.use_kernels, score=cfg.score)
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card,
+and the paper's sparse workload on the card against the CPU.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
 where `torch.cuda.is_available()` is false.  On the card:
@@ -8,16 +9,24 @@ where `torch.cuda.is_available()` is false.  On the card:
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import packed, scoring
+from repro_torch.core import hashing, scoring
+from repro_torch.core.corpus import exact_topk_sparse
+from repro_torch.core.engine import EngineConfig, LshEngine
+from repro_torch.core.store import build_store_host
+from repro_torch.data import osn
 from repro_torch.kernels import bucket_topk as bt
 from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import ops
 from repro_torch.kernels import simhash as sh
 from torch_fused_cases import CONTAINS_CASES, contains_case, edge_case_rows
+from torch_parity_rules import flips_outside_band, topk_swaps
 
 pytestmark = pytest.mark.cuda
 
@@ -69,14 +78,7 @@ def test_simhash_kernel_matches_plain(dev, n, d, k, L, offset, packed_out):
     h = torch.randn((L, k, d), generator=g).to(dev)
     got = ops.simhash(x, h, packed=packed_out)
     want = sh.simhash_plain(x, h, packed=packed_out)
-    flips = torch.bitwise_xor(got, want)
-    if packed_out:
-        flips = packed.unpack_codes(flips, k, L)
-    proj = torch.einsum("nd,lkd->nlk", x.double(), h.double())
-    bits = (flips.long()[..., None] >> torch.arange(k, device=dev)) & 1 > 0
-    band = 1e-5 * x.double().norm(dim=1)[:, None, None] \
-        * h.double().norm(dim=2)[None]
-    assert not bool((bits & (proj.abs() > band)).any())
+    assert flips_outside_band(x, h, got, want, packed_out) == 0
 
 
 @pytest.mark.parametrize("score", ["dot", "hamming"])
@@ -365,3 +367,77 @@ def test_hamming_kernel_matches_plain(dev, n, kc):
     torch.cuda.synchronize()
     assert got.shape == (n, kc)
     assert torch.equal(got, hm.hamming_plain(codes, cand))
+
+
+# -- the paper's sparse OSN workload ---------------------------------------
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("spec", [osn.DBLP_S, osn.LIVEJOURNAL_S,
+                                  osn.FRIENDSTER_S], ids=lambda s: s.name)
+def test_simhash_kernel_matches_plain_at_osn_widths(dev, spec, packed_out):
+    """The corpus sketch's inputs: densified interest vectors of d = 8192,
+    24 576 and 49 152 (a 2 048-user cut of each dataset), k of the
+    dataset, L = 4."""
+    corpus = osn.generate(dataclasses.replace(spec, num_users=2048),
+                          device=dev)
+    x = corpus.densify(torch.arange(corpus.n, device=dev))
+    h = hashing.make_hyperplanes(
+        hashing.LshParams(d=spec.num_interests, k=spec.k, L=4, seed=13),
+        device=dev)
+    got = ops.simhash(x, h, packed=packed_out)
+    want = sh.simhash_plain(x, h, packed=packed_out)
+    assert flips_outside_band(x, h, got, want, packed_out) == 0
+
+
+def test_sparse_densify_on_card_equals_cpu(dev):
+    cpu = osn.generate(osn.tiny_spec(), device="cpu")
+    card = osn.generate(osn.tiny_spec(), device=dev)
+    idx = torch.tensor([[0, -1, 5], [1999, 5, 17]])
+    assert torch.equal(card.densify(idx.to(dev)).cpu(), cpu.densify(idx))
+    q = cpu.densify(torch.arange(8))
+    q = q / q.norm(dim=1, keepdim=True)
+    cand = torch.randint(-1, cpu.n, (8, 300),
+                         generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(
+        card.scores_against_dense(q.to(dev), cand.to(dev)).cpu(),
+        cpu.scores_against_dense(q, cand), atol=1e-6, rtol=0)
+
+
+def test_sparse_engine_on_card_matches_cpu(dev):
+    """tiny_osn on both devices: the corpus codes (simhash kernel against
+    the CPU's plain sketch) and the query codes first, then, on one
+    store, ids under the near-tie rule, contains (fused_contains on the
+    card) exactly, and the oracle."""
+    spec = osn.tiny_spec()
+    cpu = osn.generate(spec, device="cpu")
+    card = osn.generate(spec, device=dev)
+    params = hashing.LshParams(d=spec.num_interests, k=spec.k, L=4, seed=7)
+    h = hashing.make_hyperplanes(params, device="cpu")
+    codes = hashing.sketch_codes_batched(cpu, h)
+    codes_c = hashing.sketch_codes_batched(card, h.to(dev), batch=512)
+    dense = cpu.densify(torch.arange(cpu.n))
+    assert flips_outside_band(dense, h, codes_c.cpu(), codes) == 0
+    store = build_store_host(codes, params.num_buckets, 128, device="cpu")
+    store_c = build_store_host(codes, params.num_buckets, 128, device=dev)
+    qidx = np.arange(64)
+    q = dense[qidx] / dense[qidx].norm(dim=1, keepdim=True)
+    qc = hashing.sketch_codes(q, h)
+    qc_c = hashing.sketch_codes(q.to(dev), h.to(dev)).cpu()
+    assert flips_outside_band(q, h, qc_c, qc) == 0
+    same = (qc_c == qc).all(dim=1).numpy()  # queries whose codes agree
+    for variant in ("lsh", "nb", "cnb"):
+        e_cpu = LshEngine(params, h, store, cpu, None,
+                          EngineConfig(variant=variant), device="cpu")
+        e_card = LshEngine(params, h.to(dev), store_c, card, None,
+                           EngineConfig(variant=variant), device=dev)
+        a = e_cpu.search(q.numpy(), m=10, exclude=qidx)
+        b = e_card.search(q.numpy(), m=10, exclude=qidx)
+        topk_swaps(a.scores[same], a.ids[same], b.scores[same], b.ids[same])
+        y = a.ids[:, 0]
+        np.testing.assert_array_equal(e_card.contains(q.numpy(), y)[same],
+                                      e_cpu.contains(q.numpy(), y)[same])
+    s_cpu, i_cpu = exact_topk_sparse(cpu, q, 11)
+    s_card, i_card = exact_topk_sparse(card, q.to(dev), 11)
+    topk_swaps(s_cpu.numpy(), i_cpu.numpy(), s_card.cpu().numpy(),
+               i_card.cpu().numpy())
