@@ -63,7 +63,27 @@ failure:
      interval beside `analysis`, failing on a mean gap above 0.15; 64
      queries of the card's cnb search against the port's CPU run; ms
      per batch of the staged sparse search and of contains;
- 11. the kernels line.  Each path of phases 5-10 runs with the launch
+ 11. P2P dynamics (`repro_torch.core.churn`), with the earlier world
+     freed: `ChurnConfig` at the LiveJournal deployment (N users, D, k,
+     L, C as above, 1024 queries, m = 10, Gaussian unit vectors, refresh
+     every 2 epochs, TTL 4), epochs cut from 12 to 8.  Cells: `run_churn`
+     (1 node); `run_node_churn` over 1 -> 2 -> 4 -> 2 -> 1 nodes, failing
+     unless every epoch's recall is within 0.02 of the 1-node run's and
+     every `ReshardEvent` charges the closed-form handoff bytes;
+     `run_failure_churn` (4 nodes, R = 2, node 1 killed at epoch 3) in
+     first-responder and quorum reads, failing unless the reference's
+     failure gates hold (`launch/failure_churn.smoke_gates`: degraded
+     then recovered within the bounds, pre-kill recalls equal, closed-
+     form bytes, flight records summing to the arrays); replicated
+     contains on the killed mesh in both modes, failing unless every
+     query whose own id sits in the killed zone still finds it.  Each
+     cell prints per-epoch recall, staleness, nodes, byte charges and
+     drops, ms per announce and per read epoch, and profiles one batch
+     (busy share, fused_query's ms, the replica view's concat timed
+     alone); fused_query (and fused_contains in the contains cell) is
+     held against plain on inputs recorded from one read-epoch batch of
+     each cell, outside the launch counts;
+ 12. the kernels line.  Each path of phases 5-11 runs with the launch
      counts set to 0 just before it and read just after, and fails
      unless each kernel it should go through was launched; a kernel's
      `launches` is the sum over the paths, `launches_by_path` the counts
@@ -181,6 +201,7 @@ def profile_batch(torch, path: str, fn, top: int = 10) -> None:
         f"(busy share {busy / wall:.3f})")
     for ms, count, key in rows[:top]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    return rows, wall
 
 
 def compare_topk(ki, ks, pi, ps, what: str,
@@ -741,6 +762,33 @@ def main() -> int:
                 setattr(ops, name, f)
         return seen
 
+    def fused_path_bound(name, a, kw):
+        """(bound_ms, bound_by) of a fused_query / fused_contains call on
+        its recorded inputs, counted as phase 4 counts them: the distinct
+        bucket rows the valid probes name (contains: up to each row's
+        first hit, where the kernel stops) and their live slots'
+        payloads, each read once, plus the rows' metadata and outputs."""
+        ids_a, fb_a, meta_a = (a[0], a[3], a[4]) if name == "fused_query" \
+            else a
+        r_a, p_a = fb_a.shape
+        c_a = ids_a.shape[1]
+        probe = torch.arange(p_a, device=fb_a.device)
+        pv = ((meta_a[:, :1] >> probe) & 1) > 0
+        meta_bytes = r_a * (p_a + 2) * 4
+        if name == "fused_contains":
+            holds = (ids_a[fb_a.long().clamp(0, ids_a.shape[0] - 1)]
+                     == meta_a[:, 1, None, None]).any(-1)
+            first = torch.where(holds & pv, probe, p_a).amin(1, keepdim=True)
+            rows = torch.unique(fb_a[pv & (probe <= first)].long())
+            return bound(rows.numel() * c_a * 4 + meta_bytes + r_a)
+        rows = torch.unique(fb_a[pv].long())
+        live = int((ids_a[rows] >= 0).sum())
+        dw = a[1].shape[-1]
+        return bound(rows.numel() * c_a * 4 + live * dw * 4 + r_a * dw * 4
+                     + meta_bytes + r_a * kw["m"] * 8,
+                     2.0 * live * dw if kw.get("score", "dot") == "dot"
+                     else 0.0)
+
     def hold_at_path_shapes(path, fn, names):
         """Hold the kernels behind the wrappers `names` against their plain
         versions on the very inputs the path gives them (one batch of
@@ -752,7 +800,13 @@ def main() -> int:
                 err, ties = hold_fused(a, kw, f"fused_query on {path}")
                 k_ms = cuda_ms(torch, lambda: ops.fused_query(*a, **kw), 5)
                 p_ms = cuda_ms(torch, lambda: fused_plain(a, kw), 1)
-                shapes = shapes + ((kw["m"], kw.get("score", "dot")),)
+                # dot sizes its score buffer for r*P pairs, or by the
+                # valid pairs' count read back when that would be too big
+                buf = ("read-back" if kw.get("score", "dot") == "dot"
+                       and fq_mod.score_buffer_rows(
+                           a[3].shape[0], a[3].shape[1], a[0].shape[1])
+                       is None else "sized")
+                shapes = shapes + ((kw["m"], kw.get("score", "dot"), buf),)
             elif name == "fused_contains":
                 if not torch.equal(ops.fused_contains(*a),
                                    fq_mod.fused_contains_plain(*a)):
@@ -781,14 +835,18 @@ def main() -> int:
                 err, ties = 0.0, 0
                 k_ms = cuda_ms(torch, lambda: ops.hamming(*a), 5)
                 p_ms = cuda_ms(torch, lambda: plain(*a), 1)
+            b_ms, b_by = (fused_path_bound(name, a, kw) if name in (
+                "fused_query", "fused_contains") else (None, None))
             k = kernels[name]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k.setdefault("path_shapes", []).append(dict(
                 path=path, shapes=[list(s) for s in shapes],
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms))
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by))
             log(f"[kernel] {name} at {path} {list(shapes)}: equal to plain "
                 f"(max score err {err:.3g}, near-tie id swaps {ties}); "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                + ("" if b_ms is None else f", bound {b_ms:.4f} ms ({b_by})"))
 
     # -- 5-9. the main path's paths, each with launch counts of its own -----
     by_path = {}
@@ -1219,7 +1277,229 @@ def main() -> int:
         f"swaps {c_ties}, max score err {c_err:.3g})")
     del lj, lj_store, lj_codes, qd, lj_cpu, store_cpu
 
-    # -- 11. kernels line ---------------------------------------------------
+    # -- 11. P2P dynamics: replicas, kills, reshards, churn -----------------
+    # the earlier phases' world leaves the card first
+    del (x, corpus_codes, store, store_h, ids_only, corpus, q, ids_flat,
+         pay_flat, words_flat, q_rows, w_rows, meta, tgt_meta, miss_meta, fb,
+         pword, st16, st4, eng, rt, staged, one_node, outs, res, qc, ids_c,
+         sc_c, moved, noise, re_ids, plan, flat, pvalid, rows_read, occ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p2p_wall = time.perf_counter()
+    from repro_torch.core import costmodel
+    from repro_torch.core.churn import (
+        ChurnConfig, FailureChurnConfig, NodeChurnConfig, run_churn,
+        run_failure_churn, run_node_churn)
+    from repro_torch.core.hashing import sketch_codes as sketch
+    from repro_torch.launch.failure_churn import smoke_gates
+    from repro_torch.obs import Observability
+
+    EPOCHS, REFRESH = 8, 2
+    ccfg = ChurnConfig(num_users=N, dim=D, k=K, L=L, capacity=C,
+                       num_queries=NQ, m=M, epochs=EPOCHS,
+                       refresh_every=REFRESH, ttl_epochs=4, update_rate=0.05,
+                       churn_rate=0.02, mutation=0.5, seed=args.seed)
+    log(f"[p2p] device bytes in use {torch.cuda.memory_allocated()} after "
+        f"freeing the earlier world; {ccfg}; cut: epochs 12 -> {EPOCHS} (the "
+        f"reference's default), so that six trajectories fit the smoke")
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches inside the block (kernel checks, profiles) leave the
+        path's launch counts as they were."""
+        saved = dict(ops.LAUNCHES)
+        try:
+            yield
+        finally:
+            ops.LAUNCHES.update(saved)
+
+    def inspect_at(path, epoch, keep=None):
+        """An `on_read` hook: at read epoch `epoch`, hold fused_query
+        against plain on the inputs of one search batch of the live state
+        and profile one batch (outside the path's launch counts); `keep`
+        gets the state."""
+        def hook(st):
+            if st.epoch != epoch:
+                return
+            kw = {} if st.replicas is None else dict(replicas=st.replicas,
+                                                     live=st.live)
+
+            def batch():
+                return st.rt.search(st.hyperplanes, st.store, st.queries,
+                                    cache=st.cache, **kw)
+
+            with uncounted():
+                hold_at_path_shapes(f"{path} epoch {epoch}", batch,
+                                    ("fused_query",))
+                rows, wall = profile_batch(torch, f"{path} epoch {epoch}",
+                                           batch)
+            fq_ms = sum(r[0] for r in rows if "fq_" in r[2])
+            busy = sum(r[0] for r in rows)
+            # the primary + replica view the owner stage builds on every
+            # replicated read (ids and payload), timed alone
+            cat_ms = 0.0 if st.replicas is None else cuda_ms(
+                torch, lambda: rt_mod._flat_view(
+                    st.store.ids, st.store.payload, *st.replicas), 3)
+            log(f"[p2p] {path} epoch {epoch} ({st.rt.cfg.n_nodes} nodes, "
+                f"live {st.live.tolist()}): one batch {busy:.3f} device ms "
+                f"of {wall:.3f} wall (busy share {busy / wall:.3f}); "
+                f"fused_query kernels {fq_ms:.3f} ms; the replica view's "
+                f"concat alone {cat_ms:.3f} ms")
+            if keep is not None:
+                keep(st)
+        return hook
+
+    def report(path, out):
+        """Per-epoch recall, staleness, nodes, byte charges, drops; ms per
+        announce epoch and per read epoch."""
+        log(f"[p2p] {path}: epoch recall stale nodes live repl_B recov_B "
+            f"handoff_B refresh_B dropped")
+        for i in range(len(out["recalls"])):
+            log(f"[p2p]   {i + 1} {out['recalls'][i]:.4f} "
+                f"{out['staleness'][i]} {out['n_nodes'][i]} "
+                f"{out['live_nodes'][i]} {out['replication_bytes'][i]} "
+                f"{out['recovery_bytes'][i]} {out['handoff_bytes'][i]} "
+                f"{out['refresh_bytes'][i]} {out['dropped_probes'][i]}")
+        ep = out["epoch_ms"]
+        ann = np.arange(len(ep)) % REFRESH == 0
+        log(f"[p2p] {path}: mean recall {out['mean_recall']:.4f}; totals "
+            f"replication {out['total_replication_bytes']} recovery "
+            f"{out['total_recovery_bytes']} handoff "
+            f"{out['total_handoff_bytes']} refresh "
+            f"{out['total_refresh_bytes']} bytes, dropped "
+            f"{int(out['dropped_probes'].sum())}; ms per announce epoch "
+            f"{ep[ann].mean():.1f} (epoch 0 {ep[0]:.1f}), per read epoch "
+            f"{ep[~ann].mean():.1f}; store generation "
+            f"{out['store_generation']}")
+        if int(out["dropped_probes"].sum()) != 0:
+            raise AssertionError(f"{path}: probes dropped")
+
+    # cell 1: the reference trajectory, one node
+    one = counted("churn_1node", ("fused_query",), lambda: run_churn(
+        ccfg, device=dev, on_read=inspect_at("churn_1node", 1)))
+    report("churn_1node", one)
+
+    # cell 2: node churn 1 -> 2 -> 4 -> 2 -> 1, against cell 1
+    sched = (1, 2, 4, 2, 1)
+    node = counted("node_churn", ("fused_query",), lambda: run_node_churn(
+        NodeChurnConfig(churn=ccfg, schedule=sched), device=dev,
+        on_read=inspect_at("node_churn", 2)))
+    report("node_churn", node)
+    gap = float(np.abs(node["recalls"] - one["recalls"]).max())
+    log(f"[p2p] node_churn schedule {sched}: largest recall difference to "
+        f"the 1-node trajectory {gap:.4f} (bound 0.02); "
+        f"{len(node['reshard_events'])} rounds")
+    if gap > 0.02:
+        raise AssertionError(f"node churn recall gap {gap} > 0.02")
+    for ev in node["reshard_events"]:
+        want = costmodel.estimate_handoff_bytes(L, NB, C, D, ev.old_n,
+                                                ev.new_n)
+        log(f"[p2p]   reshard {ev.old_n} -> {ev.new_n}: moved "
+            f"{ev.moved_buckets} bucket rows, handoff {ev.handoff_bytes} "
+            f"bytes (closed form {want})")
+        if ev.handoff_bytes != want:
+            raise AssertionError(f"{ev}: handoff bytes != {want}")
+
+    # cell 3: fail-stop kill of node 1 at epoch 3, 4 nodes, R = 2; the
+    # pre-kill (epoch 2) and degraded (epoch 3) states are kept, ids only,
+    # for cell 4
+    KILL_EPOCH, VICTIM = 3, 1
+    kept = {}
+
+    def keep_ids(mode):
+        def keep(st):
+            kept[(mode, st.epoch)] = dict(
+                rt=st.rt, hp=st.hyperplanes,
+                store=BucketStore(st.store.ids, st.store.timestamps,
+                                  st.store.write_ptr, None),
+                cache=(st.cache[0], None), replicas=(st.replicas[0], None),
+                live=st.live, queries=st.queries,
+                qidx=torch.from_numpy(st.qidx).to(dev))
+        return keep
+
+    for mode in ("first", "quorum"):
+        obs = Observability()
+        hooks = {KILL_EPOCH - 1: keep_ids(mode),
+                 KILL_EPOCH: inspect_at(f"failure_{mode}", KILL_EPOCH,
+                                        keep_ids(mode))}
+        fail = counted(f"failure_{mode}", ("fused_query",),
+                       lambda: run_failure_churn(
+                           FailureChurnConfig(churn=ccfg, n_nodes=4,
+                                              replication=2, read_mode=mode,
+                                              kills=((KILL_EPOCH, VICTIM),)),
+                           obs=obs, device=dev,
+                           on_read=lambda st: hooks.get(
+                               st.epoch, lambda _: None)(st)))
+        report(f"failure_{mode}", fail)
+        smoke_gates(fail, obs.flight, L, N, D, 2, NB // 4, C, REFRESH,
+                    EPOCHS, 1)
+        ref_ms = fail["reference_epoch_ms"]
+        log(f"[p2p] failure_{mode}: reference recalls "
+            f"{np.round(fail['reference_recalls'], 4).tolist()}; degraded "
+            f"gap {fail['degraded_gap']:.4f} (bound 0.05), recovered gap "
+            f"{fail['recovered_gap']:.4f} (bound 0.02), recovery epochs "
+            f"{fail['recovery_epochs']}; flight epoch records sum to the "
+            f"arrays exactly; reference run ms per epoch "
+            f"{ref_ms[1:].mean():.1f}")
+
+    # cell 4: replicated contains on the killed mesh, each query's own id
+    # the target: ids in the killed zone must hit through the replicas
+    def contains_at(mode, epoch):
+        """Contains of the degraded epoch's queries (own ids the targets)
+        on the state kept at `epoch`: the kill epoch's, or the epoch
+        before it (the same store before the kill, every node live)."""
+        k, qe = kept[(mode, epoch)], kept[(mode, KILL_EPOCH)]
+        return k["rt"].contains(k["hp"], k["store"], qe["queries"],
+                                qe["qidx"], cache=k["cache"],
+                                replicas=k["replicas"], live=k["live"])
+
+    def contains_cell():
+        got = {}
+        for mode in ("first", "quorum"):
+            contains_at(mode, KILL_EPOCH)  # warm-up
+            torch.cuda.synchronize()
+            with gc_paused():
+                t0 = time.perf_counter()
+                for _ in range(args.batches):
+                    hits, cstats = contains_at(mode, KILL_EPOCH)
+                torch.cuda.synchronize()
+                got[mode] = (hits, cstats,
+                             (time.perf_counter() - t0) * 1e3 / args.batches)
+        return got
+
+    creps = counted("contains_replicated", ("fused_contains",),
+                    contains_cell)
+    for mode, (hits, cstats, ms) in creps.items():
+        k = kept[(mode, KILL_EPOCH)]
+        pre = kept[(mode, KILL_EPOCH - 1)]
+        # each query's own id in its exact bucket of a table the victim
+        # owned, in the announced (pre-kill) store
+        codes = sketch(k["queries"], k["hp"]).long()        # [nq, L]
+        owner = k["rt"].topology.node_of(codes)
+        tables = torch.arange(L, device=dev)[None, :]
+        in_bucket = (pre["store"].ids[tables, codes]
+                     == k["qidx"][:, None, None]).any(-1)
+        zone_q = (in_bucket & (owner == VICTIM)).any(1)
+        hits_pre, _ = contains_at(mode, KILL_EPOCH - 1)  # pre-kill, all live
+        n_zone = int(zone_q.sum())
+        zone_hits = int(hits[zone_q].sum())
+        log(f"[p2p] contains_replicated {mode}: {int(hits.sum())} of {NQ} "
+            f"queries find their own id with node {VICTIM} dead "
+            f"(pre-kill {int(hits_pre.sum())}); {zone_hits} of {n_zone} whose "
+            f"id sits in the killed zone; replica_fanout "
+            f"{cstats.host()['replica_fanout']}, dropped {int(cstats)}; "
+            f"{ms:.3f} ms per batch of {NQ}, {NQ / ms * 1e3:.0f} contains/s")
+        if n_zone == 0 or zone_hits != n_zone or int(cstats) != 0:
+            raise AssertionError(f"contains {mode}: ids in the killed zone "
+                                 f"missed ({zone_hits} of {n_zone})")
+        hold_at_path_shapes(f"contains_replicated {mode}",
+                            lambda: contains_at(mode, KILL_EPOCH),
+                            ("fused_contains",))
+    del kept, creps
+    log(f"[p2p] phase 11 in {time.perf_counter() - p2p_wall:.1f} s; peak "
+        f"device bytes {torch.cuda.max_memory_allocated()}")
+
+    # -- 12. kernels line ---------------------------------------------------
     for name, k in kernels.items():
         k["launches"] = sum(got[name] for got in by_path.values())
         k["launches_by_path"] = {p: got[name] for p, got in by_path.items()}
@@ -1227,7 +1507,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[kernels] launches in phases 5-10: "
+    log(f"[kernels] launches in phases 5-11: "
         f"{ {n: k['launches'] for n, k in kernels.items()} }")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -11,8 +11,8 @@ mesh side of that layer:
     batch shards over the batch axes in node order;
   * the step wrappers binding each body to `MeshCollectives`
     (`make_search_step`, `make_contains_step`, `make_insert_step`,
-    `make_payload_sync`, `make_refresh_cache`) plus the sum of the
-    per-node accounting (`_psum_stats`);
+    `make_payload_sync`, `make_refresh_cache`, `make_replicate_store`)
+    plus the sum of the per-node accounting (`_psum_stats`);
   * the wire byte model (`estimate_query_bytes`, `estimate_refresh_bytes`,
     `estimate_reshard_bytes`): the Table-1 analogue in bytes, the same
     closed forms as the reference's.
@@ -97,20 +97,29 @@ def make_refresh_cache(cfg: RuntimeConfig, mesh):
     cache_payload [T, nbits, NB, C, D|W]): zone j of slice b holds the
     zone of node j ^ 2^b, the layout of the reference's sharded cache."""
     cx = _collectives(cfg, mesh)
-
-    def permuted(x: torch.Tensor) -> torch.Tensor:
-        t, nb = x.shape[:2]
-        zones = x.reshape((t, cfg.n_nodes, nb // cfg.n_nodes) + x.shape[2:])
-        out = x.new_empty((t, cfg.node_bits) + x.shape[1:])
-        for j in range(cfg.node_bits):
-            out[:, j] = cx.ppermute(zones, cfg.topo.neighbor_perm(j),
-                                    axis=1).reshape(x.shape)
-        return out
+    perms = [cfg.topo.neighbor_perm(j) for j in range(cfg.node_bits)]
 
     def refresh(ids, payload):
-        return permuted(ids), permuted(payload)
+        return (runtime_mod.permuted_zones(cx, ids, perms),
+                runtime_mod.permuted_zones(cx, payload, perms))
 
     return refresh
+
+
+def make_replicate_store(cfg: RuntimeConfig, mesh):
+    """Replica-slice construction (R-way availability, DESIGN.md Sec. 10):
+    one ppermute per replica rank, off the query path: the announce-time
+    fan-out `costmodel.estimate_replication_bytes` charges.
+
+    Returns fn(ids, payload) -> (rep_ids [T, R-1, NB, C], rep_payload
+    [T, R-1, NB, C, D|W]), zone i of slice r-1 holding the zone of node
+    (i - r) % n, as the reference's sharded slices do."""
+    cx = _collectives(cfg, mesh)
+
+    def replicate(ids, payload):
+        return runtime_mod.replicate_kernel(cfg, cx, ids, payload)
+
+    return replicate
 
 
 # -----------------------------------------------------------------------------
@@ -133,21 +142,29 @@ def _psum_stats(per_node: list[StepStats]) -> StepStats:
 
 def make_search_step(cfg: RuntimeConfig, mesh):
     """Distributed search: fn(hyperplanes, store_ids, store_payload,
-    [cache_ids, cache_payload,] q [B, d]) -> (ids [B, m], scores [B, m],
-    stats `StepStats`), with m = cfg.m.  The stats are global: `int(stats)`
-    counts the (query, table) probes that overflowed the capacitated
-    all_to_all buffers this step (0 under allgather routing)."""
+    [cache_ids, cache_payload,] [rep_ids, rep_payload, live,] q [B, d])
+    -> (ids [B, m], scores [B, m], stats `StepStats`), with m = cfg.m;
+    the replica arguments come with `cfg.replication > 1`.  The stats
+    are global: `int(stats)` counts the (query, table) probes that
+    overflowed the capacitated all_to_all buffers this step (0 under
+    allgather routing)."""
     cx = _collectives(cfg, mesh)
     has_cache = cfg.variant == "cnb" and cfg.node_bits > 0
+    has_reps = cfg.replication > 1
 
     def step(hyperplanes, ids, payload, *rest):
         rest = list(rest)
         c_ids = c_payload = None
         if has_cache:
             c_ids, c_payload = rest.pop(0), rest.pop(0)
+        kw = {}
+        if has_reps:
+            kw = dict(rep_ids=rest.pop(0), rep_payload=rest.pop(0),
+                      live=rest.pop(0))
         (q,) = rest
         outs = [runtime_mod.search_kernel(cfg, cx, cfg.m, hyperplanes, ids,
-                                          payload, c_ids, c_payload, q_row)
+                                          payload, c_ids, c_payload, q_row,
+                                          **kw)
                 for q_row in _batch_rows(mesh, q)]
         return (torch.cat([o[0] for o in outs]).reshape(-1, cfg.m),
                 torch.cat([o[1] for o in outs]).reshape(-1, cfg.m),
@@ -158,18 +175,22 @@ def make_search_step(cfg: RuntimeConfig, mesh):
 
 def make_contains_step(cfg: RuntimeConfig, mesh):
     """Distributed `contains` (paper Sec. 6.3 success probability):
-    fn(hyperplanes, store_ids, [cache_ids,] q [B, d], targets [B]) ->
-    (hits bool [B], stats `StepStats`).  Same planner and router as the
-    search step."""
+    fn(hyperplanes, store_ids, [cache_ids,] [rep_ids, live,] q [B, d],
+    targets [B]) -> (hits bool [B], stats `StepStats`).  Same planner
+    and router as the search step."""
     cx = _collectives(cfg, mesh)
     has_cache = cfg.variant == "cnb" and cfg.node_bits > 0
+    has_reps = cfg.replication > 1
 
     def step(hyperplanes, ids, *rest):
         rest = list(rest)
         c_ids = rest.pop(0) if has_cache else None
+        kw = {}
+        if has_reps:
+            kw = dict(rep_ids=rest.pop(0), live=rest.pop(0))
         q, targets = rest
         outs = [runtime_mod.contains_kernel(cfg, cx, hyperplanes, ids, c_ids,
-                                            q_row, t_row)
+                                            q_row, t_row, **kw)
                 for q_row, t_row in zip(_batch_rows(mesh, q),
                                         _batch_rows(mesh, targets))]
         return (torch.cat([o[0] for o in outs]).reshape(-1),

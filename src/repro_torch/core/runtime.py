@@ -20,6 +20,13 @@ On a CUDA store, `fused="auto"` takes the fused query / contains kernels
 for the owner stage, as the reference takes its Pallas kernels on a TPU;
 the cache and NB stages stay staged (`hamming_words` / `bucket_topk`
 through `scoring.score_topk`), as in the reference.
+
+The P2P half (DESIGN.md Sec. 9-10): R-way replicas of every zone on its
+ring successors (`replicate_kernel`), reads routed to the first live
+replica or to all R (`read_mode`), with every node masking its rows by
+its own `live` bit; fail-stop `kill_node`; and elastic membership
+(`reshard`), which splits or merges zones of the one global bucket
+array and charges the handoff in a `ReshardEvent`.
 """
 
 from __future__ import annotations
@@ -77,9 +84,18 @@ class RuntimeConfig:
             raise ValueError(
                 f"replication must be >= 1, got {self.replication}")
         if self.replication > 1:
-            raise NotImplementedError(
-                "replication > 1 (replica reads, kill_node) is not ported "
-                "yet: it comes with the churn-over-the-mesh slice")
+            if self.replication > self.n_nodes:
+                raise ValueError(
+                    f"replication R={self.replication} exceeds "
+                    f"n_nodes={self.n_nodes} (need R distinct owners)")
+            if self.routing != "alltoall":
+                raise ValueError(
+                    "replication > 1 requires alltoall routing (the "
+                    "replica redirect rides the capacitated router)")
+            if self.variant == "nb":
+                raise ValueError(
+                    "replication > 1 does not support the nb variant "
+                    "(neighbor forwards assume the primary owner; use cnb)")
 
     @property
     def topo(self) -> CanTopology:
@@ -258,14 +274,31 @@ def _pool_topk(cfg, corpus, q, flat_ids, slot_vecs, m):
                               use_kernels=cfg.use_kernels, score=cfg.score)
 
 
+def _with_replicas(primary: torch.Tensor, replicas: torch.Tensor):
+    """[T, R, NB, ...]: the primary store before its R-1 replica slices
+    (rank 0 = primary), the view every replica read indexes.  A copy, as
+    in the reference, made on every replicated read."""
+    return torch.cat([primary[:, None], replicas], dim=1)
+
+
 def _score_local(cfg, store_ids, store_payload, corpus, q, table, local_idx,
-                 mask, exclude, m, zone=None):
+                 mask, exclude, m, zone=None, rep_ids=None, rep_payload=None,
+                 rep_sel=None):
     """Top-m among the (exact + masked local near) buckets of each row:
-    the staged gather -> score -> top-m path."""
+    the staged gather -> score -> top-m path.
+
+    With `rep_sel` (replication > 1) row i reads replica rank rep_sel[i]
+    of its buckets: rank 0 is the primary store, rank r >= 1 the replica
+    slice r-1, whose zone j holds the zone of node (j - r) % n at the
+    same global bucket indices, so the probe set is unchanged."""
     probes, pvalid = _global_probes(cfg, store_ids.shape[1], local_idx, mask,
                                     zone)                  # [r, P] both
     tbl = table.long()[:, None]
-    cand_ids = store_ids[tbl, probes]                      # [r, P, C]
+    if rep_sel is None:
+        cand_ids = store_ids[tbl, probes]                  # [r, P, C]
+    else:
+        rep = rep_sel.long()[:, None]
+        cand_ids = _with_replicas(store_ids, rep_ids)[tbl, rep, probes]
     cand_ids = torch.where(pvalid[..., None], cand_ids, -1)
     r = q.shape[0]
     flat_ids = cand_ids.reshape(r, -1)
@@ -273,8 +306,12 @@ def _score_local(cfg, store_ids, store_payload, corpus, q, table, local_idx,
         flat_ids = torch.where(flat_ids == exclude[:, None], -1, flat_ids)
     slot_vecs = None
     if corpus is None:
-        slot_vecs = store_payload[tbl, probes].reshape(
-            r, flat_ids.shape[1], -1)                      # [r, P*C, D|W]
+        if rep_sel is None:
+            slot_vecs = store_payload[tbl, probes]         # [r, P, C, D|W]
+        else:
+            slot_vecs = _with_replicas(store_payload, rep_payload)[
+                tbl, rep, probes]
+        slot_vecs = slot_vecs.reshape(r, flat_ids.shape[1], -1)
     return _pool_topk(cfg, corpus, q, flat_ids, slot_vecs, m)
 
 
@@ -310,30 +347,52 @@ def _fused_on(cfg: RuntimeConfig, cx, *, has_payload: bool,
 
 
 def _fused_probe_rows(cfg: RuntimeConfig, nb: int, table, local_idx, mask,
-                      zone=None):
+                      zone=None, rep_sel=None, n_rep: int = 1):
     """(fb int32 [r, P], pword int32 [r]) for the fused kernels.
 
     `fb` flattens (table, global bucket) to a row of the [T*NB, C] store
     view; `pword` packs the per-probe validity into one int32 bitfield
-    (bit p = probe p valid; P <= 1 + k <= 31, so bit 31 stays clear)."""
+    (bit p = probe p valid; P <= 1 + k <= 31, so bit 31 stays clear).
+    With `rep_sel` the view is the [T*R*NB, C] flatten of the primary +
+    replica store, and fb = (table*R + rep_sel)*NB + zone + probe."""
     probes, pvalid = _global_probes(cfg, nb, local_idx, mask, zone)
-    fb = table.long()[:, None] * nb + probes
+    row = table.long() if rep_sel is None else \
+        table.long() * n_rep + rep_sel.long()
+    fb = row[:, None] * nb + probes
     shifts = torch.arange(pvalid.shape[1], dtype=torch.int32,
                           device=pvalid.device)
     pword = (pvalid.to(torch.int32) << shifts).sum(dim=1, dtype=torch.int32)
     return fb.to(torch.int32).contiguous(), pword
 
 
+def _flat_view(store_ids, store_payload, rep_ids, rep_payload):
+    """(ids [T*R*NB, C], payload [T*R*NB, C, D|W] or None, R): the row
+    view the fused kernels gather from, R = 1 without replicas."""
+    if rep_ids is not None:
+        store_ids = _with_replicas(store_ids, rep_ids)
+        if store_payload is not None:
+            store_payload = _with_replicas(store_payload, rep_payload)
+    n_rep = 1 if rep_ids is None else store_ids.shape[1]
+    c = store_ids.shape[-1]
+    pay = None if store_payload is None else store_payload.reshape(
+        -1, c, store_payload.shape[-1])
+    return store_ids.reshape(-1, c), pay, n_rep
+
+
 def _fused_search_local(cfg, store_ids, store_payload, q, table, local_idx,
-                        mask, exclude, m, zone=None):
+                        mask, exclude, m, zone=None, rep_ids=None,
+                        rep_payload=None, rep_sel=None):
     """Fused twin of `_score_local`: one kernel replaces gather + score +
-    top-m; no [r, P*C] candidate intermediate exists."""
+    top-m; no [r, P*C] candidate intermediate exists.  With `rep_sel` the
+    kernel gathers from the flattened primary + replica view, the rows
+    `_score_local` reads through its replica concat."""
     from repro_torch.kernels import ops
 
-    t, nb, c = store_ids.shape
-    ids_flat = store_ids.reshape(t * nb, c)
-    pay_flat = store_payload.reshape(t * nb, c, store_payload.shape[-1])
-    fb, pword = _fused_probe_rows(cfg, nb, table, local_idx, mask, zone)
+    nb = store_ids.shape[1]
+    ids_flat, pay_flat, n_rep = _flat_view(store_ids, store_payload,
+                                           rep_ids, rep_payload)
+    fb, pword = _fused_probe_rows(cfg, nb, table, local_idx, mask, zone,
+                                  rep_sel, n_rep)
     # -1 matches only empty slots == no exclusion
     excl = (torch.full_like(pword, -1) if exclude is None
             else exclude.to(torch.int32))
@@ -343,24 +402,32 @@ def _fused_search_local(cfg, store_ids, store_payload, q, table, local_idx,
 
 
 def _fused_contains_local(cfg, store_ids, table, local_idx, mask, target,
-                          zone=None):
-    """Fused twin of `_contains_local`: metadata only."""
+                          zone=None, rep_ids=None, rep_sel=None):
+    """Fused twin of `_contains_local`: metadata only.  Replica reads
+    flatten the primary + replica ids as `_fused_search_local` does."""
     from repro_torch.kernels import ops
 
-    t, nb, c = store_ids.shape
-    fb, pword = _fused_probe_rows(cfg, nb, table, local_idx, mask, zone)
+    nb = store_ids.shape[1]
+    ids_flat, _, n_rep = _flat_view(store_ids, None, rep_ids, None)
+    fb, pword = _fused_probe_rows(cfg, nb, table, local_idx, mask, zone,
+                                  rep_sel, n_rep)
     meta = torch.stack([pword, target.to(torch.int32)], dim=1)
-    return ops.fused_contains(store_ids.reshape(t * nb, c), fb, meta)
+    return ops.fused_contains(ids_flat, fb, meta)
 
 
 def _owner_topk(cfg, fused, store_ids, store_payload, corpus, q, table,
-                local_idx, mask, exclude, m, zone=None):
-    """The owner stage of a search: fused or staged."""
+                local_idx, mask, exclude, m, zone=None, reps=None,
+                rep_sel=None):
+    """The owner stage of a search: fused or staged.  `reps` is the
+    (rep_ids, rep_payload) pair that rows with `rep_sel` read."""
+    rep_ids, rep_payload = (None, None) if reps is None else reps
     if fused:
         return _fused_search_local(cfg, store_ids, store_payload, q, table,
-                                   local_idx, mask, exclude, m, zone)
+                                   local_idx, mask, exclude, m, zone,
+                                   rep_ids, rep_payload, rep_sel)
     return _score_local(cfg, store_ids, store_payload, corpus, q, table,
-                        local_idx, mask, exclude, m, zone)
+                        local_idx, mask, exclude, m, zone, rep_ids,
+                        rep_payload, rep_sel)
 
 
 def _score_cache(cfg, cache_ids, cache_payload, q, table, local_idx, mask, m,
@@ -453,6 +520,39 @@ def _route_cap(cfg: RuntimeConfig, b_loc: int) -> int:
     return max(cap, 1)
 
 
+def _replica_targets(cfg: RuntimeConfig, owner: torch.Tensor,
+                     live: torch.Tensor):
+    """Replica-aware destinations of each node's flat probes [n, F]
+    (DESIGN.md Sec. 10).
+
+    `first`: each probe goes to the first live owner on its bucket's
+    replica ring (the primary, else successor 1, ...); a probe with no
+    live replica keeps its dead primary, whose liveness mask turns its
+    rows into fill.  `quorum`: each probe fans out to all R replica
+    owners, live or not, and the origin merges every copy.  Returns
+    (dest [n, F*fanout], rep_sel [n, F*fanout], fanout), tiled
+    replica-major under quorum."""
+    n, R = cfg.n_nodes, cfg.replication
+    if cfg.read_mode == "quorum":
+        dest = torch.cat([(owner + rr) % n for rr in range(R)], dim=-1)
+        rep_sel = torch.arange(R, dtype=owner.dtype,
+                               device=owner.device).repeat_interleave(
+            owner.shape[-1]).expand(dest.shape)
+        return dest, rep_sel, R
+    live_b = live > 0
+    dest = owner
+    rep_sel = torch.zeros_like(owner)
+    found = live_b[owner.long()]
+    for rr in range(1, R):
+        cand = (owner + rr) % n
+        alive = live_b[cand.long()]
+        take = ~found & alive
+        dest = torch.where(take, cand, dest)
+        rep_sel = torch.where(take, rr, rep_sel)
+        found = found | alive
+    return dest, rep_sel, 1
+
+
 # -----------------------------------------------------------------------------
 # per-step observability scalars
 # -----------------------------------------------------------------------------
@@ -522,7 +622,7 @@ def _probes_issued(flat_mask: torch.Tensor) -> torch.Tensor:
 
 
 def _routed_stats(route, dest, qidx, b_loc: int, n: int,
-                  probes_issued) -> StepStats:
+                  probes_issued, fanout: int = 1) -> StepStats:
     """Per-node stats of an all_to_all step, from the route plan itself.
 
     `route.dest` is clamped (overflow rows are parked on destination 0),
@@ -543,7 +643,7 @@ def _routed_stats(route, dest, qidx, b_loc: int, n: int,
         probes_issued=probes_issued,
         probes_routed=torch.full((g,), dest.shape[1], **i32),
         nodes_contacted=(touch > 0).sum(dim=(1, 2), dtype=torch.int32),
-        replica_fanout=torch.ones((g,), **i32),
+        replica_fanout=torch.full((g,), fanout, **i32),
         dropped_by_dest=by_dest,
     )
 
@@ -566,6 +666,9 @@ def search_kernel(
     *,
     corpus=None,                           # id-keyed corpus (1-node only)
     exclude: torch.Tensor | None = None,   # [b] self ids (1-node only)
+    rep_ids: torch.Tensor | None = None,   # [T, R-1, NB, C] (replication)
+    rep_payload: torch.Tensor | None = None,  # [T, R-1, NB, C, D|W]
+    live: torch.Tensor | None = None,      # [n] int32 liveness mask
 ):
     """Body of the search step, for every node at once.
 
@@ -576,6 +679,12 @@ def search_kernel(
     returns ids and scores [n, b_loc, m] and per-node stats.  `int(stats)`
     counts the (query, table) probes that overflowed the all_to_all
     buffers (0 on one node and under allgather).
+
+    With `cfg.replication > 1` the routed path reads through replicas:
+    probes go to live replica owners (`_replica_targets`), are scored
+    there against the selected replica slice, and every node masks the
+    rows it returns with its own `live` bit, so a dead node contributes
+    fill, never stale rows.
     """
     if (corpus is not None or exclude is not None) and cx.routed:
         raise ValueError("corpus scoring / wire exclusion are 1-node only")
@@ -583,6 +692,11 @@ def search_kernel(
         raise ValueError(
             "score='hamming' needs slot-embedded packed payloads, not an "
             "id-keyed corpus")
+    reps_on = cfg.replication > 1
+    if reps_on and (rep_ids is None or rep_payload is None or live is None):
+        raise ValueError(
+            "replication > 1 needs rep_ids/rep_payload/live "
+            "(IndexRuntime.replicate_store builds the replica slices)")
     L = cfg.params.L
     b_loc = q.shape[-2]
     plan, flat = _flat_plan(cfg, cx, q, hyperplanes)
@@ -620,10 +734,18 @@ def search_kernel(
 
     # ---- all_to_all routing (DHT-lookup analogue) ---------------------------
     dest = flat["owner"]                                   # [n, F]
-    cap = _route_cap(cfg, b_loc)
+    fanout = 1
+    if reps_on:
+        dest, rep_col, fanout = _replica_targets(cfg, dest, live)
+        if fanout > 1:  # quorum: replica-major tiling, as rep_col's
+            flat = {k: v.repeat(1, fanout) for k, v in flat.items()}
+    cap = _route_cap(cfg, b_loc) * fanout
     route = routing_mod.plan_routes(dest, n, cap)
-    meta = torch.stack([flat["qidx"].to(torch.int32), flat["table"],
-                        flat["local"], flat["mask"]], dim=-1)
+    cols = [flat["qidx"].to(torch.int32), flat["table"], flat["local"],
+            flat["mask"]]
+    if reps_on:
+        cols.append(rep_col)
+    meta = torch.stack(cols, dim=-1)
     nodes = cx.axis_index()[:, None]
     # hamming routes the packed word rows; fill 0 is safe either way, as
     # fill rows carry meta -1 and are masked by rvalid below
@@ -639,40 +761,62 @@ def search_kernel(
     rtable = rtable.clamp(min=0)
     rlocal = recv_meta[..., 2].reshape(n, -1).clamp(min=0)
     rmask = recv_meta[..., 3].reshape(n, -1).clamp(min=0)
+    reps = rrep = None
+    if reps_on:
+        reps = (rep_ids, rep_payload)
+        rrep = recv_meta[..., 4].reshape(n, -1).clamp(0, cfg.replication - 1)
+        # a dead node's own rows are fill: liveness is enforced where the
+        # data lives, so a survivor cannot resurrect a killed zone
+        rvalid &= cx.alive(live)[:, None]
 
+    # fill rows score clamped indices, staged or fused alike, and are
+    # masked by rvalid below
     ids_r, sc_r = _node_stages(cfg, cx, fused, store_ids, store_payload,
                                cache_ids, cache_payload, rq, rtable, rlocal,
-                               rmask, m)                   # [n, n*cap, m]
+                               rmask, m, reps, rrep)       # [n, n*cap, m]
     ids_r = torch.where(rvalid[..., None], ids_r, -1)
     sc_r = torch.where(rvalid[..., None], sc_r, NEG_INF)
 
     # ---- return results to origin -------------------------------------------
     back_i = cx.all_to_all(ids_r.reshape(n, n, cap, m))
     back_s = cx.all_to_all(sc_r.reshape(n, n, cap, m))
-    gather_i = routing_mod.return_to_origin(route, back_i, -1)   # [n, F, m]
+    gather_i = routing_mod.return_to_origin(route, back_i, -1)  # [n, F*fan, m]
     gather_s = routing_mod.return_to_origin(route, back_s, NEG_INF)
-    ids, sc = dedupe_topk(gather_i.reshape(n, b_loc, L * m),
-                          gather_s.reshape(n, b_loc, L * m), m)
+
+    def per_query(x):  # a query's L*m rows from every replica copy
+        x = x.reshape(n, fanout, b_loc, L * m)
+        return x.transpose(1, 2).reshape(n, b_loc, fanout * L * m)
+
+    ids, sc = dedupe_topk(per_query(gather_i), per_query(gather_s), m)
     return ids, sc, _routed_stats(route, dest, flat["qidx"], b_loc, n,
-                                  probes)
+                                  probes, fanout)
 
 
 def _node_stages(cfg, cx, fused, store_ids, store_payload, cache_ids,
-                 cache_payload, rq, rtable, rlocal, rmask, m):
+                 cache_payload, rq, rtable, rlocal, rmask, m, reps=None,
+                 rrep=None):
     """Each node's candidate stages over the rows it received, merged to
     the top m: the owner's buckets, then the node-bit near buckets from
     the CNB cache or the NB forwards.  Node-leading [n, R, ...] in and
-    [n, R, m] out; each stage runs once over all nodes' rows."""
+    [n, R, m] out; each stage runs once over all nodes' rows.  Rows with
+    a replica rank `rrep` > 0 read the replica slices `reps` and skip
+    the cache, which mirrors the primary zones only."""
     n, R = rtable.shape
     zone = _zones(cx, store_ids, R)
     q, table, local, mask = _rows(rq), _rows(rtable), _rows(rlocal), \
         _rows(rmask)
+    rep_sel = None if rrep is None else _rows(rrep)
     ids_o, sc_o = _owner_topk(cfg, fused, store_ids, store_payload, None, q,
-                              table, local, mask, None, m, zone)
+                              table, local, mask, None, m, zone, reps,
+                              rep_sel)
     ids_parts, sc_parts = [ids_o], [sc_o]
     if cfg.variant == "cnb" and cache_ids is not None and cfg.node_bits > 0:
         ids_c, sc_c = _score_cache(cfg, cache_ids, cache_payload, q, table,
                                    local, mask, m, zone)
+        if rep_sel is not None:
+            prim = (rep_sel == 0)[:, None]
+            ids_c = torch.where(prim, ids_c, -1)
+            sc_c = torch.where(prim, sc_c, NEG_INF)
         ids_parts.append(ids_c)
         sc_parts.append(sc_c)
     if cfg.variant == "nb":
@@ -734,43 +878,53 @@ def _search_allgather(cfg, cx, fused, store_ids, store_payload, cache_ids,
 
 
 def _contains_local(cfg, store_ids, table, local_idx, mask, target,
-                    zone=None):
+                    zone=None, rep_ids=None, rep_sel=None):
     """bool [r]: does `target` sit in the (exact + masked local near)
-    buckets of each row?  Metadata only."""
+    buckets of each row?  Metadata only.  With `rep_sel` row i reads
+    replica rank rep_sel[i] (as in `_score_local`)."""
     probes, pvalid = _global_probes(cfg, store_ids.shape[1], local_idx, mask,
                                     zone)
-    cand = store_ids[table.long()[:, None], probes]        # [r, P, C]
+    tbl = table.long()[:, None]
+    if rep_sel is None:
+        cand = store_ids[tbl, probes]                      # [r, P, C]
+    else:
+        cand = _with_replicas(store_ids, rep_ids)[
+            tbl, rep_sel.long()[:, None], probes]
     hit = (cand == target[:, None, None]) & pvalid[..., None]
     return hit.any(dim=2).any(dim=1)
 
 
 def _owner_hits(cfg, fused, store_ids, table, local_idx, mask, target,
-                zone=None):
+                zone=None, rep_ids=None, rep_sel=None):
     """The owner component of contains: fused or staged."""
     if fused:
         return _fused_contains_local(cfg, store_ids, table, local_idx, mask,
-                                     target, zone)
+                                     target, zone, rep_ids, rep_sel)
     return _contains_local(cfg, store_ids, table, local_idx, mask, target,
-                           zone)
+                           zone, rep_ids, rep_sel)
 
 
 def _contains_hits(cfg, cx, fused, store_ids, cache_ids, rtable, rlocal,
-                   rmask, rtgt):
+                   rmask, rtgt, rep_ids=None, rrep=None):
     """Membership across each node's received rows, [n, R] in and out:
     the owner's buckets plus node-bit coverage (cache or neighbour
     forwards), mirroring the search step's candidate pool.  The cache and
     NB components stay staged; they OR booleans in, so the result is the
-    same either way."""
+    same either way.  Replica reads (`rrep` > 0) skip the cache."""
     n, R = rtable.shape
     zone = _zones(cx, store_ids, R)
     table, local, mask, tgt = _rows(rtable), _rows(rlocal), _rows(rmask), \
         _rows(rtgt)
-    hit = _owner_hits(cfg, fused, store_ids, table, local, mask, tgt, zone)
+    rep_sel = None if rrep is None else _rows(rrep)
+    hit = _owner_hits(cfg, fused, store_ids, table, local, mask, tgt, zone,
+                      rep_ids, rep_sel)
     if cfg.variant == "cnb" and cache_ids is not None and cfg.node_bits > 0:
         jj = torch.arange(cache_ids.shape[1], device=hit.device)[None, :]
         cand = cache_ids[table.long()[:, None], jj,
                          (zone + local.long())[:, None]]   # [r, nbits, C]
         valid = _node_bit_valid(cfg, mask)[..., None]
+        if rep_sel is not None:
+            valid = valid & (rep_sel == 0)[:, None, None]
         hit |= ((cand == tgt[:, None, None]) & valid).any(dim=2).any(dim=1)
     hit = hit.reshape(n, R)
     if cfg.variant == "nb":
@@ -789,11 +943,15 @@ def _contains_hits(cfg, cx, fused, store_ids, cache_ids, rtable, rlocal,
 
 
 def contains_kernel(cfg: RuntimeConfig, cx, hyperplanes, store_ids,
-                    cache_ids, q, targets):
+                    cache_ids, q, targets, *, rep_ids=None, live=None):
     """Body of `contains`: was target y's id in ANY searched bucket of
     query x?  Routes only metadata.  1-node: q [b, d], targets [b] ->
     (hits bool [b], `StepStats`); mesh: node-leading [n, b_loc, ...] in,
-    hits [n, b_loc] and per-node stats out."""
+    hits [n, b_loc] and per-node stats out.  With replication, `rep_ids`
+    [T, R-1, NB, C] and `live` [n] route as the search step does."""
+    reps_on = cfg.replication > 1
+    if reps_on and (rep_ids is None or live is None):
+        raise ValueError("replication > 1 needs rep_ids/live")
     L, n = cfg.params.L, cx.n
     b_loc = q.shape[-2]
     _, flat = _flat_plan(cfg, cx, q, hyperplanes)
@@ -826,26 +984,42 @@ def contains_kernel(cfg: RuntimeConfig, cx, hyperplanes, store_ids,
                 StepStats.local(n, probes, b_loc * n, device=q.device))
 
     dest = flat["owner"]
-    cap = _route_cap(cfg, b_loc)
+    fanout = 1
+    if reps_on:
+        dest, rep_col, fanout = _replica_targets(cfg, dest, live)
+        if fanout > 1:
+            flat = {k: v.repeat(1, fanout) for k, v in flat.items()}
+            flat_tgt = flat_tgt.repeat(1, fanout)
+    cap = _route_cap(cfg, b_loc) * fanout
     route = routing_mod.plan_routes(dest, n, cap)
-    meta = torch.stack([flat["qidx"].to(torch.int32), flat["table"],
-                        flat["local"], flat["mask"], flat_tgt], dim=-1)
+    cols = [flat["qidx"].to(torch.int32), flat["table"], flat["local"],
+            flat["mask"], flat_tgt]
+    if reps_on:
+        cols.append(rep_col)
+    meta = torch.stack(cols, dim=-1)
     send_meta = routing_mod.build_send_buffer(route, n, cap, meta, -1)
-    recv_meta = cx.all_to_all(send_meta)                   # [n, n, cap, 5]
+    recv_meta = cx.all_to_all(send_meta)                   # [n, n, cap, 5|6]
 
     def col(c):
         return recv_meta[..., c].reshape(n, -1)
 
+    rep_kw = {}
+    if reps_on:
+        rep_kw = dict(rep_ids=rep_ids,
+                      rrep=col(5).clamp(0, cfg.replication - 1))
     hit = _contains_hits(cfg, cx, fused, store_ids, cache_ids,
                          col(1).clamp(min=0), col(2).clamp(min=0),
-                         col(3).clamp(min=0), col(4))
+                         col(3).clamp(min=0), col(4), **rep_kw)
     # empty-slot rows carry rtgt = -1, which DOES match empty bucket ids
     # (-1); this validity mask is what discards those spurious hits
     hit &= col(1) >= 0
+    if reps_on:
+        hit &= cx.alive(live)[:, None]
     back = cx.all_to_all(hit.reshape(n, n, cap).to(torch.int32))
-    got = routing_mod.return_to_origin(route, back, 0)     # [n, F]
-    return (got.reshape(n, b_loc, L).any(dim=-1),
-            _routed_stats(route, dest, flat["qidx"], b_loc, n, probes))
+    got = routing_mod.return_to_origin(route, back, 0)     # [n, F*fanout]
+    return (got.reshape(n, fanout, b_loc, L).any(dim=-1).any(dim=1),
+            _routed_stats(route, dest, flat["qidx"], b_loc, n, probes,
+                          fanout))
 
 
 # -----------------------------------------------------------------------------
@@ -909,6 +1083,38 @@ def payload_sync_kernel(cx, store_ids, store_payload, vec):
     live = (store_ids >= 0) & (store_ids < nv)
     gathered = vec_all[store_ids.clamp(0, nv - 1).long()]
     return torch.where(live[..., None], gathered, store_payload)
+
+
+def permuted_zones(cx, x: torch.Tensor, perms) -> torch.Tensor:
+    """[T, len(perms), NB, ...]: slice i holds the global array `x`
+    [T, NB, ...] after each node sent its zone along pairing perms[i]
+    (one ppermute over the zone axis each)."""
+    t, nb = x.shape[:2]
+    zones = x.reshape((t, cx.n, nb // cx.n) + x.shape[2:])
+    out = x.new_empty((t, len(perms)) + x.shape[1:])
+    for i, perm in enumerate(perms):
+        out[:, i] = cx.ppermute(zones, perm, axis=1).reshape(x.shape)
+    return out
+
+
+def replicate_kernel(cfg: RuntimeConfig, cx, store_ids, store_payload):
+    """Replica construction: each node ships its zone to its R-1 ring
+    successors, one ppermute per replica rank.
+
+    Replica rank r of node j's zone lands on node (j + r) % n
+    (`CanTopology.replicas_of`), so zone i of slice r-1 holds the zone of
+    node (i - r) % n, at the same bucket indices as on the primary.
+    Returns (rep_ids [T, R-1, NB, C], rep_payload [T, R-1, NB, C, D|W]).
+
+    Soft state keeps the replicas fresh (paper Sec. 4.1): the churn
+    driver re-runs this after every announce round, which is the
+    replication of those writes, and charges each fan-out through
+    `costmodel.estimate_replication_bytes`."""
+    n = cx.n
+    perms = [[(i, (i + r) % n) for i in range(n)]
+             for r in range(1, cfg.replication)]
+    return (permuted_zones(cx, store_ids, perms),
+            permuted_zones(cx, store_payload, perms))
 
 
 # -----------------------------------------------------------------------------
@@ -986,6 +1192,38 @@ class IndexRuntime:
         refresh = self._dist().make_refresh_cache(self.cfg, self.mesh)
         return refresh(store.ids, store.payload)
 
+    def replicate_store(self, store: BucketStore):
+        """The (rep_ids, rep_payload) slices of the current store, or None
+        at replication 1.  Call after every announce round: replica
+        freshness rides the soft-state re-announce cycle."""
+        step = self.make_replicate_step()
+        if step is None:
+            return None
+        return step(store.ids, store.payload)
+
+    def make_replicate_step(self):
+        """fn(ids, payload) -> replica slices (DESIGN.md Sec. 10), or None
+        at replication 1."""
+        if self.cfg.replication == 1:
+            return None
+        return self._dist().make_replicate_store(self.cfg, self.mesh)
+
+    def _live(self, replicas, live) -> torch.Tensor | None:
+        """The liveness mask [n] int32 on the device (all live by default)
+        of a replicated read, or None at replication 1; raises the
+        reference's argument errors."""
+        if self.cfg.replication == 1:
+            if replicas is not None or live is not None:
+                raise ValueError("replicas/live require cfg.replication > 1")
+            return None
+        if replicas is None:
+            raise ValueError(
+                "replication > 1: pass replicas= (see replicate_store)")
+        if live is None:
+            return torch.ones(self.cfg.n_nodes, dtype=torch.int32,
+                              device=self.device)
+        return self._put(live, torch.int32)
+
     def _needs_cache(self) -> bool:
         return self.cfg.variant == "cnb" and self.cfg.node_bits > 0
 
@@ -998,10 +1236,15 @@ class IndexRuntime:
         return tuple(cache)[:n]
 
     def search(self, hyperplanes, store: BucketStore, q, *, cache=None,
-               corpus=None, exclude=None, m: int | None = None):
+               corpus=None, exclude=None, m: int | None = None,
+               replicas=None, live=None):
         """(ids [nq, m], scores [nq, m], `StepStats`) over this topology;
         `int(stats)` is the dropped-probe count.  On a mesh, `m` is
-        cfg.m, and `corpus` / `exclude` (1-node only) are refused."""
+        cfg.m, and `corpus` / `exclude` (1-node only) are refused.  With
+        `cfg.replication > 1`, `replicas` (from `replicate_store`) is
+        required and `live` ([n_nodes] 0/1, all live by default) names
+        the replica owners reads may land on."""
+        live = self._live(replicas, live)
         qd = self._put(q, torch.float32)
         if self.mesh is None:
             m = self.cfg.m if m is None else m
@@ -1015,20 +1258,24 @@ class IndexRuntime:
         if corpus is not None or exclude is not None:
             raise ValueError("corpus scoring / exclusion are 1-node only")
         step = self._dist().make_search_step(self.cfg, self.mesh)
+        reps = () if live is None else (*replicas, live)
         return step(hyperplanes, store.ids, store.payload,
-                    *self._cache_args(cache, 2), qd)
+                    *self._cache_args(cache, 2), *reps, qd)
 
     def contains(self, hyperplanes, store: BucketStore, q, targets, *,
-                 cache=None):
-        """(hits bool [nq], `StepStats`)."""
+                 cache=None, replicas=None, live=None):
+        """(hits bool [nq], `StepStats`); `replicas` / `live` as in
+        `search`."""
+        live = self._live(replicas, live)
         qd = self._put(q, torch.float32)
         td = self._put(targets, torch.int32)
         if self.mesh is None:
             return contains_kernel(self.cfg, LOCAL, hyperplanes, store.ids,
                                    None, qd, td)
         step = self._dist().make_contains_step(self.cfg, self.mesh)
-        return step(hyperplanes, store.ids, *self._cache_args(cache, 1), qd,
-                    td)
+        reps = () if live is None else (replicas[0], live)
+        return step(hyperplanes, store.ids, *self._cache_args(cache, 1),
+                    *reps, qd, td)
 
     def insert(self, hyperplanes, store: BucketStore, vec, vid, now):
         vec = self._put(vec, torch.float32)
@@ -1062,3 +1309,149 @@ class IndexRuntime:
             payload=payload_sync_kernel(LOCAL, store.ids, store.payload, vec),
             generation=store.generation + 1,
         )
+
+
+# -----------------------------------------------------------------------------
+# failure injection: fail-stop kill with no handoff (DESIGN.md Sec. 10)
+# -----------------------------------------------------------------------------
+
+
+def _blanked(x: torch.Tensor, axis: int, s: int, e: int, fill) -> torch.Tensor:
+    """A copy of `x` with [s, e) of `axis` set to `fill`; `x` is kept."""
+    out = x.clone()
+    out.narrow(axis, s, e - s).fill_(fill)
+    return out
+
+
+def kill_node(rt: IndexRuntime, store: BucketStore, replicas, node: int):
+    """Fail-stop loss of one node: its bucket zone and the replica slices
+    it held vanish with no handoff (contrast `reshard`, the graceful
+    path).
+
+    The zone `zone_range(node)` is blanked in the primary store, and so
+    is the node's share of the replica slices (copies of other nodes'
+    zones it was holding); the replicas of its own zone, on its ring
+    successors, survive, and first-responder or quorum reads serve from
+    them.  Bumps `generation`, so caches drop results that may hold the
+    dead node's rows.  Functional: returns a new (store, replicas) and
+    leaves the inputs as they were.  Pair it with a 0 in the `live` mask
+    until the next re-announce repopulates the zone."""
+    s, e = rt.topology.zone_range(node)
+    new_store = BucketStore(
+        ids=_blanked(store.ids, 1, s, e, store_mod.EMPTY),
+        timestamps=_blanked(store.timestamps, 1, s, e, 0),
+        write_ptr=_blanked(store.write_ptr, 1, s, e, 0),
+        payload=None if store.payload is None
+        else _blanked(store.payload, 1, s, e, 0),
+        generation=store.generation + 1,
+    )
+    new_reps = replicas
+    if replicas is not None:
+        rep_ids, rep_payload = replicas
+        new_reps = (_blanked(rep_ids, 2, s, e, store_mod.EMPTY),
+                    None if rep_payload is None
+                    else _blanked(rep_payload, 2, s, e, 0))
+    return new_store, new_reps
+
+
+# -----------------------------------------------------------------------------
+# elastic membership: reshard a runtime to a new node count (DESIGN.md Sec. 9)
+# -----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshardEvent:
+    """Ledger entry of one membership round (power-of-two join/leave).
+
+    `moved_buckets` counts the bucket rows (across all L tables) whose
+    owner changed; `handoff_bytes` is the Table-1 analogue byte charge of
+    shipping those rows (ids + timestamps + embedded payloads + ring
+    pointers) to the new owners."""
+
+    old_n: int
+    new_n: int
+    moved_buckets: int
+    handoff_bytes: int
+
+
+def gather_store(store: BucketStore) -> BucketStore:
+    """The global view of a (possibly mesh-placed) store.
+
+    The zones are contiguous slices of one global bucket array, and on
+    one device that array is the store itself: the view shares its
+    tensors, with no copy and no trip to the host.  (Real deployments
+    ship only the moved slices; `ReshardEvent` charges exactly those.)"""
+    return BucketStore(store.ids, store.timestamps, store.write_ptr,
+                       store.payload, store.generation)
+
+
+def reshard(
+    rt: IndexRuntime,
+    store: BucketStore,
+    new_n_nodes: int | None = None,
+    *,
+    mesh=None,
+    runtime: IndexRuntime | None = None,
+    cap_factor: float | None = None,
+) -> tuple[IndexRuntime, BucketStore, ReshardEvent]:
+    """Elastic node membership: split or merge the contiguous CAN zones to
+    `new_n_nodes` owners and hand the bucket state off.
+
+    Growing N -> rN splits every zone (the incumbent keeps the first
+    subzone, r-1 joiners take the rest); shrinking merges sibling groups
+    onto the group's first node.  The global bucket array is invariant
+    under the round and the planner derives the same probes on every
+    topology, so search results are the same before and after.
+
+    `runtime=` reuses a built target runtime; otherwise one is built from
+    this runtime's config with `n_nodes=new_n_nodes` (and `cap_factor`,
+    default unchanged) on `mesh` (None: the 1-node runtime on this
+    runtime's device).  CNB caches are not migrated: rebuild them with
+    `new_rt.refresh_cache(new_store)`.  Returns (new_runtime,
+    migrated_store, ReshardEvent); the store's generation is bumped."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.can import moved_buckets
+
+    if runtime is not None:
+        if mesh is not None or cap_factor is not None:
+            raise ValueError(
+                "mesh=/cap_factor= don't apply to a prebuilt runtime — "
+                "build the target runtime with them instead")
+        if new_n_nodes is not None and new_n_nodes != runtime.cfg.n_nodes:
+            raise ValueError(
+                f"runtime has n_nodes={runtime.cfg.n_nodes}, "
+                f"asked for {new_n_nodes}")
+        # a membership round replaces only the topology knobs: any other
+        # drift would change the query discipline mid-trajectory
+        if dataclasses.replace(
+            runtime.cfg, n_nodes=rt.cfg.n_nodes,
+            cap_factor=rt.cfg.cap_factor,
+        ) != rt.cfg:
+            raise ValueError(
+                "target runtime differs beyond the topology knobs: "
+                f"{runtime.cfg} vs {rt.cfg}")
+        new_rt = runtime
+    else:
+        if new_n_nodes is None:
+            raise ValueError("need new_n_nodes or a prebuilt runtime")
+        cfg = dataclasses.replace(
+            rt.cfg, n_nodes=int(new_n_nodes),
+            cap_factor=float(rt.cfg.cap_factor if cap_factor is None
+                             else cap_factor))
+        new_rt = IndexRuntime(cfg, mesh=mesh,
+                              device=None if mesh is not None else rt.device)
+
+    glob = gather_store(store)
+    glob.generation = glob.generation + 1
+    new_store = new_rt.shard_store(glob)
+    d = 0 if glob.payload is None else int(glob.payload.shape[-1])
+    event = ReshardEvent(
+        old_n=rt.cfg.n_nodes,
+        new_n=new_rt.cfg.n_nodes,
+        moved_buckets=rt.cfg.params.L * moved_buckets(rt.cfg.topo,
+                                                      new_rt.cfg.topo),
+        handoff_bytes=costmodel.estimate_handoff_bytes(
+            rt.cfg.params.L, glob.ids.shape[1], glob.ids.shape[2], d,
+            rt.cfg.n_nodes, new_rt.cfg.n_nodes),
+    )
+    return new_rt, new_store, event

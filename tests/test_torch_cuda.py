@@ -441,3 +441,66 @@ def test_sparse_engine_on_card_matches_cpu(dev):
     s_card, i_card = exact_topk_sparse(card, q.to(dev), 11)
     topk_swaps(s_cpu.numpy(), i_cpu.numpy(), s_card.cpu().numpy(),
                i_card.cpu().numpy())
+
+
+def _replicated_calls(dev, monkeypatch, R, mode):
+    """The fused_query and fused_contains calls of one replicated search
+    and contains on a 4-node mesh on the card, node 1 killed: [(args,
+    kwargs)] each, recorded as the runtime makes them."""
+    from repro_torch.core.runtime import IndexRuntime, RuntimeConfig, \
+        kill_node
+    from repro_torch.launch.mesh import make_zone_mesh
+
+    n_users, d, k, L, c, nq = 6000, 64, 8, 3, 128, 256
+    g = torch.Generator().manual_seed(R)
+    x = torch.nn.functional.normalize(torch.randn((n_users, d), generator=g),
+                                      dim=-1)
+    params = hashing.LshParams(d=d, k=k, L=L, seed=R)
+    h = hashing.make_hyperplanes(params, device="cpu")
+    store = build_store_host(hashing.sketch_codes(x, h), params.num_buckets,
+                             c, payload=x, device=dev)
+    rt = IndexRuntime(RuntimeConfig(params=params, n_nodes=4, m=11,
+                                    cap_factor=4.0, replication=R,
+                                    read_mode=mode),
+                      mesh=make_zone_mesh(4, device=dev))
+    reps = rt.replicate_store(store)
+    cache = rt.refresh_cache(store)
+    store, reps = kill_node(rt, store, reps, 1)
+    calls = {"fused_query": [], "fused_contains": []}
+    for name in calls:
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=real, **kw: (
+            calls[_n].append((a, kw)), _f(*a, **kw))[1])
+    q = x[:nq].to(dev)
+    live = [1, 0, 1, 1]
+    rt.search(h.to(dev), store, q, cache=cache, replicas=reps, live=live)
+    rt.contains(h.to(dev), store, q, torch.arange(nq), cache=cache,
+                replicas=reps, live=live)
+    monkeypatch.undo()
+    assert len(calls["fused_query"]) == len(calls["fused_contains"]) == 1
+    ids_flat = calls["fused_query"][0][0][0]
+    assert ids_flat.shape == (L * R * params.num_buckets, c)
+    return calls["fused_query"][0], calls["fused_contains"][0][0]
+
+
+@pytest.mark.parametrize("R,mode", [(2, "first"), (2, "quorum"),
+                                    (3, "first"), (3, "quorum")])
+def test_fused_kernels_on_the_replica_view(dev, monkeypatch, R, mode):
+    """fused_query and fused_contains on the [T*R*NB, C] primary +
+    replica view a replicated read gives them (quorum: R x the routed
+    rows), against their plain versions.  The R = 3 quorum shape also
+    runs with the score buffer sized by the pair count read back."""
+    (a, kw), ca = _replicated_calls(dev, monkeypatch, R, mode)
+    gi, gs = ops.fused_query(*a, **kw)
+    wi, ws = fq.fused_query_plain(*a, **kw)
+    topk_swaps(ws.cpu().numpy(), wi.cpu().numpy(), gs.cpu().numpy(),
+               gi.cpu().numpy(), tol=1e-5)
+    assert torch.equal(ops.fused_contains(*ca), fq.fused_contains_plain(*ca))
+    if (R, mode) == (3, "quorum"):
+        r, n_probes = a[3].shape
+        monkeypatch.setattr(fq, "SCORE_BUFFER_BYTES",
+                            r * n_probes * a[0].shape[1] * 4 - 1)
+        assert fq.score_buffer_rows(r, n_probes, a[0].shape[1]) is None
+        bi, bs = ops.fused_query(*a, **kw)
+        topk_swaps(ws.cpu().numpy(), wi.cpu().numpy(), bs.cpu().numpy(),
+                   bi.cpu().numpy(), tol=1e-5)

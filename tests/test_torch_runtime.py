@@ -234,11 +234,14 @@ def test_fused_on_refuses_corpus_and_ids_only(world):
 
 
 def test_mesh_runtime_not_ported(world):
-    """The mesh runs (tests/test_torch_mesh.py); what is not ported yet is
-    replication, and a mesh-sized config still needs its mesh."""
+    """The mesh runs (tests/test_torch_mesh.py) and so does replication
+    (tests/test_torch_failure.py): a replicated config builds, one with
+    more replicas than nodes is refused as the reference refuses it, and
+    a mesh-sized config still needs its mesh."""
     p = world["params"]
-    with pytest.raises(NotImplementedError, match="replication > 1"):
-        RuntimeConfig(params=p, n_nodes=2, replication=2)
+    assert RuntimeConfig(params=p, n_nodes=2, replication=2).replication == 2
+    with pytest.raises(ValueError, match="exceeds n_nodes"):
+        RuntimeConfig(params=p, n_nodes=2, replication=3)
     with pytest.raises(ValueError, match="replication must be >= 1"):
         RuntimeConfig(params=p, replication=0)
     with pytest.raises(ValueError, match="needs a mesh"):

@@ -20,8 +20,10 @@ differ by an ulp.  `topk_swaps` holds `got` against `ref`:
     any order; the group that reaches the last rank may hold other ids,
     since its tie partners may lie past rank m.
 
-It returns the number of ranks whose ids differ: the swaps.  Not
-collected by pytest; the test files import it.
+It returns the number of ranks whose ids differ: the swaps.
+
+Churn trajectories: `race_free_announces`, below.  Not collected by
+pytest; the test files import it.
 """
 
 from __future__ import annotations
@@ -72,3 +74,20 @@ def flips_outside_band(x, h, got, want, packed_out=False) -> int:
     band = 1e-5 * x.double().norm(dim=1)[:, None, None] \
         * h.double().norm(dim=2)[None]
     return int((bits & (proj.abs() > band)).sum())
+
+
+def race_free_announces(monkeypatch, churn) -> None:
+    """Give the reference churn driver (`repro.core.churn`, the module
+    passed in) a private copy of every announce batch.
+
+    The reference announces `_pad_to(vecs, ...)`, which is the
+    trajectory's own numpy array when no padding is needed; JAX's CPU
+    backend reads such an array without copying it, and the trajectory
+    mutates it in place when it draws the next epoch.  An epoch-0
+    announce still queued on the asynchronous dispatcher then stores
+    (some of) epoch 1's vectors, so the reference's recalls before its
+    first re-announce depend on the host's load.  With a copy the
+    reference computes what it means to, on every run."""
+    pad = churn._pad_to
+    monkeypatch.setattr(churn, "_pad_to",
+                        lambda x, n, fill: np.array(pad(x, n, fill)))
