@@ -83,11 +83,36 @@ failure:
      alone); fused_query (and fused_contains in the contains cell) is
      held against plain on inputs recorded from one read-epoch batch of
      each cell, outside the launch counts;
- 12. the kernels line.  Each path of phases 5-11 runs with the launch
-     counts set to 0 just before it and read just after, and fails
-     unless each kernel it should go through was launched; a kernel's
-     `launches` is the sum over the paths, `launches_by_path` the counts
-     of each.  `hamming` (single word) is on no path: phase 4 holds it.
+ 12. serving (`repro_torch.serve`), every cell's launches on one path
+     `serve`, each cell with its wall time and peak device memory:
+     serve_mesh (in phase 9, on its 16-node hamming cnb mesh: 1024
+     queries through the frontend, alltoall, cap_factor 16, m + 1
+     headroom, cache on; ids equal the 1-node runtime's with the self id
+     excluded, exactly, 0 drops; the host syncs of one mesh stage
+     counted); serve_closed (after phase 9: `serve_retrieval.run` over
+     `LshEngine(use_kernels=True)` at the dense world's widths, a zipf(1)
+     pool of 512 users, 4096 arrivals, 32 a tick, max_batch 64, queue
+     256, churn every 50 ticks at 0.02, TTL 4; cache on, then off; the
+     CLI's smoke gates, and every sampled served miss equal to
+     `LshEngine.search` on the store of its generation); serve_open
+     (`run_openloop` at half the measured capacity, 4096 queries, sync
+     then depth 4, SLO p99 50 ms: ids bit-identical, no host sync in the
+     engine backend's stage under `set_sync_debug_mode("error")`, the
+     most batches in flight); serve_lifecycle (after phase 11, on its
+     `ChurnConfig`: `run_serve_churn` direct at depth 1 and through the
+     writer thread at depth 4, and `run_serve_reshard`, with recalls
+     equal to phase 11's `run_churn` exactly; `run_serve_failure`, 4
+     nodes, R = 2, node 1 killed at epoch 3, with the reference's
+     assertions).  simhash and bucket_topk (closed), fused_query and
+     hamming_words (mesh), fused_query and bucket_topk (failure) are
+     held against plain on one serving batch's inputs, and one batch of
+     each backend is profiled;
+ 13. the kernels line.  Each path of phases 5-12 runs with the launch
+     counts set to 0 just before it and read just after (the serve cells
+     add into one path), and fails unless each kernel it should go
+     through was launched; a kernel's `launches` is the sum over the
+     paths, `launches_by_path` the counts of each.  `hamming` (single
+     word) is on no path: phase 4 holds it.
 
 Kernel times come from one CUDA event pair per call, recorded while the
 card still spins on a sleep kernel, so the host's launch pace stays out
@@ -109,6 +134,8 @@ import os
 import subprocess
 import sys
 import time
+import types
+import warnings
 
 import numpy as np
 
@@ -816,6 +843,13 @@ def main() -> int:
                 k_ms = cuda_ms(torch, lambda: ops.fused_contains(*a), 5)
                 p_ms = cuda_ms(torch, lambda: fq_mod.fused_contains_plain(*a),
                                1)
+            elif name == "simhash":
+                # flipped sign bits must lie within the 1e-5 band
+                ties, err = simhash_check(a[0], kw.get("packed", False),
+                                          hh=a[1])
+                k_ms = cuda_ms(torch, lambda: ops.simhash(*a, **kw), 5)
+                p_ms = cuda_ms(torch, lambda: sh_mod.simhash_plain(*a, **kw),
+                               5)
             elif name == "bucket_topk":
                 qa, cand, valid, m = a
                 ks, ki = ops.bucket_topk(qa, cand, valid, m)
@@ -854,7 +888,8 @@ def main() -> int:
 
     def counted(path, expect, fn):
         """Run `fn` with every launch count set to 0 just before and read
-        just after; fail if a kernel of `expect` was not launched."""
+        just after; fail if a kernel of `expect` was not launched.  A path
+        run again adds this run's counts to its earlier ones."""
         expected.update(expect)
         ops.reset_launches()
         out = fn()
@@ -863,9 +898,21 @@ def main() -> int:
         missing = [n for n in expect if got[n] == 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched: {missing}")
+        if path in by_path:  # the serve cells add into one path
+            got = {n: c + by_path[path][n] for n, c in got.items()}
         by_path[path] = got
         log(f"[launches] {path}: {got}")
         return out
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches inside the block (kernel checks, profiles) leave the
+        path's launch counts as they were."""
+        saved = dict(ops.LAUNCHES)
+        try:
+            yield
+        finally:
+            ops.LAUNCHES.update(saved)
 
     # -- 5. runtime search --------------------------------------------------
     n_rec = 64
@@ -1017,8 +1064,9 @@ def main() -> int:
 
     def mesh_runtime(n, score, variant, **kw):
         kw.setdefault("cap_factor", float(n))
+        kw.setdefault("m", M)
         return IndexRuntime(RuntimeConfig(
-            params=params, variant=variant, m=M, n_nodes=n, use_kernels=True,
+            params=params, variant=variant, n_nodes=n, use_kernels=True,
             score=score, **kw), mesh=make_zone_mesh(n, device=dev))
 
     def refreshed(n, score, st):
@@ -1089,6 +1137,111 @@ def main() -> int:
     log("[mesh] n=16 hamming lsh/nb/cnb (alltoall) and cnb (allgather): "
         "ids and scores equal the 1-node runtime's exactly, 0 dropped; "
         "contains nb/cnb equal the 1-node contains")
+    # -- 12. serving: the 16-node mesh backend (serve_mesh) ------------------
+    from repro_torch.launch import serve_retrieval as sr_cli
+    from repro_torch.serve import (
+        FrontendConfig, RetrievalFrontend, RuntimeBackend)
+
+    @contextlib.contextmanager
+    def serve_cell(name):
+        """Print the wall time and peak device memory of one serve cell."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        log(f"[serve] {name}: cell wall {time.perf_counter() - t0:.1f} s, "
+            f"peak device bytes {torch.cuda.max_memory_allocated()}")
+
+    @contextlib.contextmanager
+    def spied(keep_state):
+        """Record the `RuntimeBackend.dispatch_async` calls of the block:
+        each batch's backend, padded queries and exclude ids, stage-time
+        generation and `PendingDispatch`, and with `keep_state` the store
+        and corpus it was staged on (else only the last call is kept)."""
+        seen = []
+        real = RuntimeBackend.dispatch_async
+
+        def spy(backend, q_pad, ex_pad, m):
+            pending = real(backend, q_pad, ex_pad, m)
+            rec = types.SimpleNamespace(
+                backend=backend, q=q_pad.copy(), ex=ex_pad.copy(), m=m,
+                gen=backend.generation, pending=pending,
+                store=backend._store if keep_state else None,
+                corpus=backend._corpus if keep_state else None)
+            if not keep_state:
+                seen.clear()
+            seen.append(rec)
+            return pending
+
+        RuntimeBackend.dispatch_async = spy
+        try:
+            yield seen
+        finally:
+            RuntimeBackend.dispatch_async = real
+
+    def stage_syncs(backend, rec):
+        """Host syncs of one `dispatch_async` of the batch `rec`, counted
+        by torch's sync-debug warnings; the batch is then finished."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pending = backend.dispatch_async(rec.q, rec.ex, rec.m)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        pending.wait()
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    with serve_cell("serve_mesh"):
+        backend_m = RuntimeBackend(
+            mesh_runtime(16, "hamming", "cnb", m=M + 1), hyperplanes=h,
+            store=st16, cache=cache16)
+        fe_m = RetrievalFrontend(backend_m, FrontendConfig(
+            m=M, max_batch=256, queue_capacity=1024, cache=True))
+        q_np, ex_np = x[qids[0]].cpu().numpy(), qids[0].cpu().numpy()
+
+        def serve_twice():
+            """The 1024 queries twice: all misses, then all hits."""
+            outs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(fe_m.search(q_np, exclude=ex_np))
+                outs.append((time.perf_counter() - t0) * 1e3)
+            return outs
+
+        with spied(keep_state=False) as seen_m:
+            (ids_m, sc_m), miss_ms, (ids_h, _), hit_ms = counted(
+                "serve", ("fused_query", "hamming_words"), serve_twice)
+        rt1 = IndexRuntime(RuntimeConfig(params=params, variant="cnb", m=M,
+                                         use_kernels=True, score="hamming"),
+                           device=dev)
+        want_i, want_s, _ = rt1.search(h, store_h, x[qids[0]],
+                                       exclude=qids[0])
+        st_m = fe_m.stats.summary()
+        if not (np.array_equal(ids_m, want_i.cpu().numpy())
+                and np.array_equal(sc_m, want_s.cpu().numpy())
+                and np.array_equal(ids_h, ids_m)):
+            raise AssertionError("serve_mesh: ids differ from the 1-node "
+                                 "runtime's")
+        if st_m["dropped_probes"] != 0 or st_m["cache_hits"] != NQ:
+            raise AssertionError(f"serve_mesh: {st_m}")
+        rec_m = seen_m[-1]
+        n_sync_m = stage_syncs(backend_m, rec_m)
+        hold_at_path_shapes("serve mesh", lambda: backend_m.dispatch(
+            rec_m.q, rec_m.ex, M), ("fused_query", "hamming"))
+        profile_batch(torch, "serve mesh batch", lambda: backend_m.dispatch(
+            rec_m.q, rec_m.ex, M))
+        log(f"[serve] serve_mesh: 16 nodes, hamming cnb, alltoall "
+            f"cap_factor 16, m+1 headroom, max_batch 256: {NQ} queries "
+            f"{miss_ms:.1f} ms as misses ({NQ / miss_ms * 1e3:.0f} "
+            f"queries/s, {st_m['batches']} batches), {hit_ms:.1f} ms as "
+            f"cache hits; ids and scores equal the 1-node runtime's with "
+            f"the self id excluded, exactly; dropped 0; p50 "
+            f"{st_m['p50_us']:.0f} us p99 {st_m['p99_us']:.0f} us; host "
+            f"syncs in one stage of a {len(rec_m.q)}-row batch {n_sync_m}")
+        del backend_m, fe_m, seen_m, rec_m, rt1
     del cache16
 
     n_dot = 256
@@ -1105,6 +1258,131 @@ def main() -> int:
         log(f"[mesh] n=4 dot {variant}: ids equal the 1-node runtime's "
             f"(near-tie swaps {ties}, max score err {err:.3g})")
     del cache4
+
+    # -- 12. serving: the CLI over the engine backend (serve_closed/open) ---
+    def cli_args(**kw):
+        """`serve_retrieval`'s arguments at the dense world's widths."""
+        a = sr_cli.build_parser().parse_args([])
+        a.n, a.d, a.k, a.L, a.m, a.capacity = N, D, K, L, M, C
+        a.pool, a.queries, a.offered = 512, 4096, 32
+        a.max_batch, a.queue_capacity = 64, 256
+        a.churn_every, a.churn_frac, a.ttl_epochs = 50, 0.02, 4
+        a.seed, a.device = args.seed, "cuda"
+        for key, val in kw.items():
+            setattr(a, key, val)
+        return a
+
+    def check_not_stale(seen, want=512):
+        """Every sampled served miss (a row with an exclude id) equals
+        `LshEngine.search` of the same query on the store and corpus of
+        the generation it was staged at.  Returns (rows checked, rows
+        equal exactly, generations, near-tie swaps)."""
+        rows = [(r, i) for r in seen for i in np.flatnonzero(r.ex >= 0)]
+        by_gen = {}
+        for r, i in rows:
+            by_gen.setdefault(r.gen, []).append((r, i))
+        per = -(-want // len(by_gen))
+        checked = exact = swaps = 0
+        for gen, lst in sorted(by_gen.items()):
+            pick = lst[::max(1, len(lst) // per)][:per]
+            r0 = pick[0][0]
+            eng_g = LshEngine(r0.backend.runtime.cfg.params, r0.backend._hp,
+                              r0.store, r0.corpus, None,
+                              EngineConfig(variant="cnb", use_kernels=True),
+                              device=dev)
+            qg = np.stack([r.q[i] for r, i in pick])
+            res_g = eng_g.search(qg, m=M, exclude=np.array(
+                [r.ex[i] for r, i in pick]))
+            got_i = np.stack([r.pending.wait()[0][i] for r, i in pick])
+            got_s = np.stack([r.pending.wait()[1][i] for r, i in pick])
+            _, t = compare_topk(torch.from_numpy(got_i),
+                                torch.from_numpy(got_s),
+                                torch.from_numpy(res_g.ids),
+                                torch.from_numpy(res_g.scores),
+                                f"serve_closed generation {gen}")
+            swaps += t
+            exact += int((got_i == res_g.ids).all(1).sum())
+            checked += len(pick)
+        if checked < 256:
+            raise AssertionError(f"serve_closed: only {checked} served "
+                                 f"misses checked")
+        return checked, exact, len(by_gen), swaps
+
+    for cache_on in (True, False):
+        name = "serve_closed" + ("" if cache_on else " --no-cache")
+        with serve_cell(name):
+            a = cli_args(no_cache=not cache_on)
+            with spied(keep_state=True) as seen_c:
+                t0 = time.perf_counter()
+                s_c = counted("serve", ("simhash", "bucket_topk"),
+                              lambda: sr_cli.run(a))
+                wall_c = time.perf_counter() - t0
+            sr_cli.smoke_gates(a, s_c)  # the CLI's smoke assertions
+            gen_c = seen_c[-1].backend.generation
+            checked, exact, n_gen, swaps = check_not_stale(seen_c)
+            rec_c = seen_c[-1]
+            log(f"[serve] {name}: p50 {s_c['p50_us']:.0f} us p99 "
+                f"{s_c['p99_us']:.0f} us, {s_c['qps']:.0f} queries/s, hit "
+                f"rate {s_c['hit_rate']:.4f}, messages/query "
+                f"{s_c['messages_per_query']:.3f}, rejects "
+                f"{s_c['rejected']}, ring_full {s_c['ring_full']}, "
+                f"dropped {s_c['dropped_probes']}, batches {s_c['batches']} "
+                f"(mean {s_c['mean_batch']:.1f} rows), store generation "
+                f"{gen_c}; run wall {wall_c:.1f} s (world build and "
+                f"warm-up included); {checked} served misses over {n_gen} "
+                f"generations equal LshEngine.search on their generation's "
+                f"store ({exact} exactly, near-tie swaps {swaps})")
+            if cache_on:
+                hold_at_path_shapes("serve closed", lambda: rec_c.backend
+                                    .dispatch(rec_c.q, rec_c.ex, M),
+                                    ("simhash", "bucket_topk"))
+                profile_batch(torch, "serve closed batch", lambda: rec_c
+                              .backend.dispatch(rec_c.q, rec_c.ex, M))
+            del seen_c, rec_c
+
+    with serve_cell("serve_open"):
+        a = cli_args(open_loop=True, pipeline=4)
+        in_flight = []
+        real_stage = RetrievalFrontend._stage_batch
+
+        def stage_spy(fe):
+            real_stage(fe)
+            in_flight.append((fe.cfg.pipeline_depth, len(fe._inflight)))
+
+        RetrievalFrontend._stage_batch = stage_spy
+        try:
+            with spied(keep_state=False) as seen_o:
+                ol = counted("serve", ("simhash", "bucket_topk"),
+                             lambda: sr_cli.run_openloop(a))
+        finally:
+            RetrievalFrontend._stage_batch = real_stage
+        if not ol["identical"]:
+            raise AssertionError("serve_open: pipelined ids != sync ids")
+        # the engine backend's stage: no host sync at all
+        rec_o = seen_o[-1]
+        rec_o.backend.dispatch(rec_o.q, rec_o.ex, M)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = rec_o.backend.dispatch_async(rec_o.q, rec_o.ex, M)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pending.wait()
+        most = {d: max(n for dd, n in in_flight if dd == d) for d in (1, 4)}
+        for mode in ("sync", "pipelined"):
+            r = ol[mode]
+            log(f"[serve] serve_open {mode}: p50 {r.p50_ms:.3f} ms p99 "
+                f"{r.p99_ms:.3f} ms, served {r.served_qps:.0f} queries/s "
+                f"of {r.offered_qps:.0f} offered, shed {r.shed}, SLO p99 "
+                f"<= {a.slo_p99_ms:g} ms "
+                f"{'PASS' if r.slo_ok(a.slo_p99_ms) else 'FAIL'}")
+        log(f"[serve] serve_open: capacity {ol['capacity']:.0f} queries/s "
+            f"(one {a.max_batch}-query batch), rate {ol['rate']:.0f}; "
+            f"pipelined ids bit-identical to sync; the engine backend's "
+            f"stage made no host sync (sync-debug mode 'error'); most "
+            f"batches in flight at once: depth 1 {most[1]}, depth 4 "
+            f"{most[4]}")
+        del seen_o, rec_o, pending
 
     # -- 10. the paper's workload: LIVEJOURNAL_S, sparse interest vectors --
     from repro_torch.core import analysis, metrics
@@ -1303,16 +1581,6 @@ def main() -> int:
         f"freeing the earlier world; {ccfg}; cut: epochs 12 -> {EPOCHS} (the "
         f"reference's default), so that six trajectories fit the smoke")
 
-    @contextlib.contextmanager
-    def uncounted():
-        """Launches inside the block (kernel checks, profiles) leave the
-        path's launch counts as they were."""
-        saved = dict(ops.LAUNCHES)
-        try:
-            yield
-        finally:
-            ops.LAUNCHES.update(saved)
-
     def inspect_at(path, epoch, keep=None):
         """An `on_read` hook: at read epoch `epoch`, hold fused_query
         against plain on the inputs of one search batch of the live state
@@ -1499,7 +1767,119 @@ def main() -> int:
     log(f"[p2p] phase 11 in {time.perf_counter() - p2p_wall:.1f} s; peak "
         f"device bytes {torch.cuda.max_memory_allocated()}")
 
-    # -- 12. kernels line ---------------------------------------------------
+    # -- 12. serving: read/write epochs through the frontend ----------------
+    from repro_torch.core.churn import _trajectory as churn_trajectory
+    from repro_torch.serve import (
+        ServeChurnConfig, ServeFailureConfig, run_serve_churn,
+        run_serve_failure, run_serve_reshard)
+
+    with serve_cell("serve_lifecycle"):
+        for depth, writer in ((1, False), (4, True)):
+            # the direct run records its pipeline spans: where the serving
+            # half of its wall time goes (the rest is the trajectory's
+            # world, the ground truth and the write epochs)
+            obs_sc = Observability() if depth == 1 else None
+            t0 = time.perf_counter()
+            sc_out = counted("serve", ("simhash", "bucket_topk"),
+                             lambda: run_serve_churn(ServeChurnConfig(
+                                 churn=ccfg, pipeline_depth=depth,
+                                 use_writer=writer), obs=obs_sc, device=dev))
+            wall = time.perf_counter() - t0
+            if obs_sc is not None:
+                spans = {}
+                for ev in obs_sc.tracer.events():
+                    n_ms = spans.setdefault(ev[1], [0, 0.0])
+                    n_ms[0] += 1
+                    n_ms[1] += ev[4] / 1e3
+                log("[serve] run_serve_churn depth 1, span totals (calls, "
+                    "ms): " + ", ".join(f"{k} {v[0]} {v[1]:.1f}"
+                                        for k, v in spans.items()))
+                # the trajectory alone: its numpy world and ground truth,
+                # which every churn driver spends before serving a query
+                t1 = time.perf_counter()
+                for _ in churn_trajectory(ccfg, dev):
+                    pass
+                torch.cuda.synchronize()
+                log(f"[serve] the trajectory alone (world and ground truth, "
+                    f"no index): {time.perf_counter() - t1:.1f} s")
+            same = np.array_equal(sc_out["recalls"], one["recalls"])
+            log(f"[serve] run_serve_churn depth {depth} "
+                f"{'writer thread' if writer else 'direct'}: recalls "
+                f"{np.round(sc_out['recalls'], 4).tolist()} "
+                f"({'equal' if same else 'NOT equal'} to run_churn's), "
+                f"repeat mismatches {sc_out['repeat_mismatches']}, hit rate "
+                f"{sc_out['summary']['hit_rate']:.4f}, writer installs "
+                f"{sc_out['writer_installed']}; {wall:.1f} s, "
+                f"{wall * 1e3 / (EPOCHS + 1):.1f} ms per epoch")
+            if not same or sc_out["repeat_mismatches"]:
+                raise AssertionError(f"run_serve_churn depth {depth}: "
+                                     f"recalls differ from run_churn's")
+        t0 = time.perf_counter()
+        rs_out = counted("serve", ("fused_query",), lambda: run_serve_reshard(
+            ServeChurnConfig(churn=ccfg), device=dev))
+        wall = time.perf_counter() - t0
+        same = np.array_equal(rs_out["recalls"], one["recalls"])
+        log(f"[serve] run_serve_reshard: recalls "
+            f"{'equal' if same else 'NOT equal'} to run_churn's, swaps "
+            f"{rs_out['swaps']}, handoff bytes "
+            f"{rs_out['total_handoff_bytes']}, repeat mismatches "
+            f"{rs_out['repeat_mismatches']}, stale evictions "
+            f"{rs_out['stale_evictions']}; {wall:.1f} s, "
+            f"{wall * 1e3 / (EPOCHS + 1):.1f} ms per epoch")
+        if not same or rs_out["swaps"] != EPOCHS \
+                or rs_out["total_handoff_bytes"] != 0 \
+                or rs_out["repeat_mismatches"]:
+            raise AssertionError(f"run_serve_reshard: {rs_out}")
+        fcfg = ServeFailureConfig(churn=ccfg, n_nodes=4, replication=2,
+                                  read_mode="first", kill_epoch=KILL_EPOCH,
+                                  kill_node=VICTIM)
+        t0 = time.perf_counter()
+        with spied(keep_state=False) as seen_f:
+            f_out = counted("serve", ("fused_query", "bucket_topk"),
+                            lambda: run_serve_failure(fcfg, device=dev))
+        wall = time.perf_counter() - t0
+        g = f_out["generations"]
+        # tests/test_failure.py's SERVE_FAILURE assertions
+        ok = (f_out["repeat_mismatches"] == 0
+              and f_out["degraded"][KILL_EPOCH - 1]
+              and not f_out["degraded"][-1]
+              and f_out["recall_after_kill"]
+              >= f_out["recall_before_kill"] - 0.05
+              and g[KILL_EPOCH - 1] > g[KILL_EPOCH - 2]
+              and f_out["stale_evictions"] > 0 and f_out["cache_hits"] > 0
+              and f_out["replication_bytes"] > 0
+              and f_out["recovery_bytes"] > 0
+              and f_out["stats"].dropped_probes == 0)
+        log(f"[serve] run_serve_failure (4 nodes, R = 2, first, node "
+            f"{VICTIM} killed at epoch {KILL_EPOCH}): recalls "
+            f"{np.round(f_out['recalls'], 4).tolist()}, before / after the "
+            f"kill {f_out['recall_before_kill']:.4f} / "
+            f"{f_out['recall_after_kill']:.4f}, degraded "
+            f"{f_out['degraded'].tolist()}, stale evictions "
+            f"{f_out['stale_evictions']}, cache hits {f_out['cache_hits']}, "
+            f"replication bytes {f_out['replication_bytes']}, recovery "
+            f"bytes {f_out['recovery_bytes']}, dropped "
+            f"{f_out['stats'].dropped_probes}; {wall:.1f} s, "
+            f"{wall * 1e3 / (EPOCHS + 1):.1f} ms per epoch; the "
+            f"reference's assertions {'hold' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("run_serve_failure: the reference's "
+                                 "assertions fail")
+        rec_f = seen_f[-1]
+        n_sync_f = stage_syncs(rec_f.backend, rec_f)
+        hold_at_path_shapes("serve failure", lambda: rec_f.backend.dispatch(
+            rec_f.q, rec_f.ex, M), ("fused_query", "bucket_topk"))
+        profile_batch(torch, "serve failure batch", lambda: rec_f.backend
+                      .dispatch(rec_f.q, rec_f.ex, M))
+        log(f"[serve] serve_failure: host syncs in one stage of a "
+            f"{len(rec_f.q)}-row replicated mesh batch {n_sync_f}")
+        del seen_f, rec_f
+    missing = [n for n in ("simhash", "bucket_topk", "fused_query",
+                           "hamming_words") if by_path["serve"][n] == 0]
+    if missing:
+        raise AssertionError(f"serve: kernels never launched: {missing}")
+
+    # -- 13. kernels line ---------------------------------------------------
     for name, k in kernels.items():
         k["launches"] = sum(got[name] for got in by_path.values())
         k["launches_by_path"] = {p: got[name] for p, got in by_path.items()}
@@ -1507,7 +1887,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[kernels] launches in phases 5-11: "
+    log(f"[kernels] launches in phases 5-12: "
         f"{ {n: k['launches'] for n, k in kernels.items()} }")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -10,7 +10,7 @@ mesh side of that layer:
     (`shard_store` only places it on the mesh's device), and the query
     batch shards over the batch axes in node order;
   * the step wrappers binding each body to `MeshCollectives`
-    (`make_search_step`, `make_contains_step`, `make_insert_step`,
+    (`search_step_fn` / `make_search_step`, `make_contains_step`, `make_insert_step`,
     `make_payload_sync`, `make_refresh_cache`, `make_replicate_store`)
     plus the sum of the per-node accounting (`_psum_stats`);
   * the wire byte model (`estimate_query_bytes`, `estimate_refresh_bytes`,
@@ -140,37 +140,47 @@ def _psum_stats(per_node: list[StepStats]) -> StepStats:
     return StepStats(replica_fanout=per_node[0].replica_fanout[0], **fields)
 
 
-def make_search_step(cfg: RuntimeConfig, mesh):
-    """Distributed search: fn(hyperplanes, store_ids, store_payload,
-    [cache_ids, cache_payload,] [rep_ids, rep_payload, live,] q [B, d])
-    -> (ids [B, m], scores [B, m], stats `StepStats`), with m = cfg.m;
-    the replica arguments come with `cfg.replication > 1`.  The stats
-    are global: `int(stats)` counts the (query, table) probes that
-    overflowed the capacitated all_to_all buffers this step (0 under
-    allgather routing)."""
-    cx = _collectives(cfg, mesh)
+def search_step_fn(cfg: RuntimeConfig):
+    """The distributed search step, as a function of the mesh:
+    ``search_step_fn(cfg)(mesh)`` is fn(hyperplanes, store_ids,
+    store_payload, [cache_ids, cache_payload,] [rep_ids, rep_payload,
+    live,] q [B, d]) -> (ids [B, m], scores [B, m], stats `StepStats`),
+    with m = cfg.m; the replica arguments come with `cfg.replication >
+    1`.  The stats are global: `int(stats)` counts the (query, table)
+    probes that overflowed the capacitated all_to_all buffers this step
+    (0 under allgather routing)."""
     has_cache = cfg.variant == "cnb" and cfg.node_bits > 0
     has_reps = cfg.replication > 1
 
-    def step(hyperplanes, ids, payload, *rest):
-        rest = list(rest)
-        c_ids = c_payload = None
-        if has_cache:
-            c_ids, c_payload = rest.pop(0), rest.pop(0)
-        kw = {}
-        if has_reps:
-            kw = dict(rep_ids=rest.pop(0), rep_payload=rest.pop(0),
-                      live=rest.pop(0))
-        (q,) = rest
-        outs = [runtime_mod.search_kernel(cfg, cx, cfg.m, hyperplanes, ids,
-                                          payload, c_ids, c_payload, q_row,
-                                          **kw)
-                for q_row in _batch_rows(mesh, q)]
-        return (torch.cat([o[0] for o in outs]).reshape(-1, cfg.m),
-                torch.cat([o[1] for o in outs]).reshape(-1, cfg.m),
-                _psum_stats([o[2] for o in outs]))
+    def on_mesh(mesh):
+        cx = _collectives(cfg, mesh)
 
-    return step
+        def step(hyperplanes, ids, payload, *rest):
+            rest = list(rest)
+            c_ids = c_payload = None
+            if has_cache:
+                c_ids, c_payload = rest.pop(0), rest.pop(0)
+            kw = {}
+            if has_reps:
+                kw = dict(rep_ids=rest.pop(0), rep_payload=rest.pop(0),
+                          live=rest.pop(0))
+            (q,) = rest
+            outs = [runtime_mod.search_kernel(cfg, cx, cfg.m, hyperplanes,
+                                              ids, payload, c_ids, c_payload,
+                                              q_row, **kw)
+                    for q_row in _batch_rows(mesh, q)]
+            return (torch.cat([o[0] for o in outs]).reshape(-1, cfg.m),
+                    torch.cat([o[1] for o in outs]).reshape(-1, cfg.m),
+                    _psum_stats([o[2] for o in outs]))
+
+        return step
+
+    return on_mesh
+
+
+def make_search_step(cfg: RuntimeConfig, mesh):
+    """Distributed search on `mesh`: `search_step_fn(cfg)(mesh)`."""
+    return search_step_fn(cfg)(mesh)
 
 
 def make_contains_step(cfg: RuntimeConfig, mesh):

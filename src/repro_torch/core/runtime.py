@@ -1152,6 +1152,7 @@ class IndexRuntime:
             self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
+        self._steps = {}
 
     @property
     def topology(self) -> CanTopology:
@@ -1179,6 +1180,118 @@ class IndexRuntime:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x).to(self.device, dtype)
 
+    def _step(self, name: str, build):
+        """The step `name`, built once per runtime."""
+        if name not in self._steps:
+            self._steps[name] = build()
+        return self._steps[name]
+
+    # -- raw step functions (serve backends wrap them and count shapes) ------
+
+    def search_step_fn(self, with_corpus: bool = False):
+        """The search step as a plain callable.
+
+        1-node: ``fn(hyperplanes, store_ids, payload_or_corpus, q,
+        exclude, m)``.  Mesh: the distributed step, ``fn(hyperplanes,
+        ids, payload, [cache_ids, cache_payload,] [rep_ids, rep_payload,
+        live,] q)`` with ``m = cfg.m`` baked in."""
+        if self.mesh is None:
+            cfg = self.cfg
+
+            if with_corpus:
+                def fn(hyperplanes, store_ids, corpus, q, exclude, m):
+                    return search_kernel(cfg, LOCAL, m, hyperplanes,
+                                         store_ids, None, None, None, q,
+                                         corpus=corpus, exclude=exclude)
+            else:
+                def fn(hyperplanes, store_ids, store_payload, q, exclude, m):
+                    return search_kernel(cfg, LOCAL, m, hyperplanes,
+                                         store_ids, store_payload, None,
+                                         None, q, exclude=exclude)
+            return fn
+        if with_corpus:
+            raise ValueError("corpus scoring is 1-node only")
+        return self._dist().search_step_fn(self.cfg)(self.mesh)
+
+    # -- the step constructors, each built once per runtime ------------------
+
+    def make_search_step(self):
+        """1-node: ``fn(hyperplanes, store_ids, store_payload, q, exclude,
+        m)``; mesh: `search_step_fn`'s."""
+        return self._step("search", self.search_step_fn)
+
+    def make_contains_step(self):
+        """1-node: ``fn(hyperplanes, store_ids, q, targets)``; mesh:
+        ``fn(hyperplanes, ids, [cache_ids,] [rep_ids, live,] q,
+        targets)``."""
+        def build():
+            if self.mesh is not None:
+                return self._dist().make_contains_step(self.cfg, self.mesh)
+            cfg = self.cfg
+
+            def fn(hyperplanes, store_ids, q, targets):
+                return contains_kernel(cfg, LOCAL, hyperplanes, store_ids,
+                                       None, q, targets)
+            return fn
+
+        return self._step("contains", build)
+
+    def make_insert_step(self):
+        """``fn(hyperplanes, store, vec, vid, now)`` -> the new store."""
+        def build():
+            if self.mesh is not None:
+                return self._dist().make_insert_step(self.cfg, self.mesh)
+            cfg = self.cfg
+
+            def fn(hyperplanes, st: BucketStore, vec, vid, now):
+                return insert_kernel(cfg, LOCAL, hyperplanes, st, vec, vid,
+                                     now)
+            return fn
+
+        return self._step("insert", build)
+
+    def make_expire_step(self):
+        """GC is elementwise over bucket state: the same op on every
+        topology (zone-local on a mesh store by construction)."""
+        return store_mod.expire
+
+    def make_payload_sync(self):
+        """``fn(store, vec)`` -> the store with every live slot's payload
+        at its id's row of `vec`, generation bumped."""
+        def build():
+            if self.mesh is not None:
+                return self._dist().make_payload_sync(self.cfg, self.mesh)
+
+            def fn(st: BucketStore, vec):
+                return dataclasses.replace(
+                    st,
+                    payload=payload_sync_kernel(LOCAL, st.ids, st.payload,
+                                                vec),
+                    generation=st.generation + 1,
+                )
+            return fn
+
+        return self._step("payload_sync", build)
+
+    def make_refresh_cache(self):
+        """CNB neighbour-cache refresh ``fn(ids, payload)``, or None on
+        topologies without node bits (1 node: every near bucket is
+        already local)."""
+        if self.cfg.node_bits == 0:
+            return None
+        return self._step("refresh_cache", lambda: self._dist(
+        ).make_refresh_cache(self.cfg, self.mesh))
+
+    def make_replicate_step(self):
+        """fn(ids, payload) -> replica slices (DESIGN.md Sec. 10), or None
+        at replication 1."""
+        if self.cfg.replication == 1:
+            return None
+        return self._step("replicate", lambda: self._dist(
+        ).make_replicate_store(self.cfg, self.mesh))
+
+    # -- host-level convenience API (topology-blind drivers) -----------------
+
     def shard_store(self, store: BucketStore) -> BucketStore:
         if self.mesh is None:
             return store
@@ -1187,10 +1300,8 @@ class IndexRuntime:
     def refresh_cache(self, store: BucketStore):
         """The CNB neighbour cache (cache_ids, cache_payload), or None on
         topologies without node bits."""
-        if self.cfg.node_bits == 0:
-            return None
-        refresh = self._dist().make_refresh_cache(self.cfg, self.mesh)
-        return refresh(store.ids, store.payload)
+        refresh = self.make_refresh_cache()
+        return None if refresh is None else refresh(store.ids, store.payload)
 
     def replicate_store(self, store: BucketStore):
         """The (rep_ids, rep_payload) slices of the current store, or None
@@ -1200,13 +1311,6 @@ class IndexRuntime:
         if step is None:
             return None
         return step(store.ids, store.payload)
-
-    def make_replicate_step(self):
-        """fn(ids, payload) -> replica slices (DESIGN.md Sec. 10), or None
-        at replication 1."""
-        if self.cfg.replication == 1:
-            return None
-        return self._dist().make_replicate_store(self.cfg, self.mesh)
 
     def _live(self, replicas, live) -> torch.Tensor | None:
         """The liveness mask [n] int32 on the device (all live by default)
@@ -1249,18 +1353,18 @@ class IndexRuntime:
         if self.mesh is None:
             m = self.cfg.m if m is None else m
             ex = None if exclude is None else self._put(exclude, torch.int32)
-            payload = None if corpus is not None else store.payload
-            return search_kernel(self.cfg, LOCAL, m, hyperplanes, store.ids,
-                                 payload, None, None, qd, corpus=corpus,
-                                 exclude=ex)
+            if corpus is not None:
+                return self.search_step_fn(with_corpus=True)(
+                    hyperplanes, store.ids, corpus, qd, ex, m)
+            return self.make_search_step()(hyperplanes, store.ids,
+                                           store.payload, qd, ex, m)
         if m is not None and m != self.cfg.m:
             raise ValueError(f"mesh steps bake m={self.cfg.m}; got m={m}")
         if corpus is not None or exclude is not None:
             raise ValueError("corpus scoring / exclusion are 1-node only")
-        step = self._dist().make_search_step(self.cfg, self.mesh)
         reps = () if live is None else (*replicas, live)
-        return step(hyperplanes, store.ids, store.payload,
-                    *self._cache_args(cache, 2), *reps, qd)
+        return self.make_search_step()(hyperplanes, store.ids, store.payload,
+                                       *self._cache_args(cache, 2), *reps, qd)
 
     def contains(self, hyperplanes, store: BucketStore, q, targets, *,
                  cache=None, replicas=None, live=None):
@@ -1269,27 +1373,20 @@ class IndexRuntime:
         live = self._live(replicas, live)
         qd = self._put(q, torch.float32)
         td = self._put(targets, torch.int32)
+        step = self.make_contains_step()
         if self.mesh is None:
-            return contains_kernel(self.cfg, LOCAL, hyperplanes, store.ids,
-                                   None, qd, td)
-        step = self._dist().make_contains_step(self.cfg, self.mesh)
+            return step(hyperplanes, store.ids, qd, td)
         reps = () if live is None else (replicas[0], live)
         return step(hyperplanes, store.ids, *self._cache_args(cache, 1),
                     *reps, qd, td)
 
     def insert(self, hyperplanes, store: BucketStore, vec, vid, now):
-        vec = self._put(vec, torch.float32)
-        vid = self._put(vid, torch.int32)
-        if self.mesh is None:
-            return insert_kernel(self.cfg, LOCAL, hyperplanes, store, vec,
-                                 vid, now)
-        step = self._dist().make_insert_step(self.cfg, self.mesh)
-        return step(hyperplanes, store, vec, vid, now)
+        return self.make_insert_step()(
+            hyperplanes, store, self._put(vec, torch.float32),
+            self._put(vid, torch.int32), now)
 
     def expire(self, store: BucketStore, now, ttl: int) -> BucketStore:
-        # GC is elementwise over bucket state: the same op on every
-        # topology (zone-local on a mesh store by construction)
-        return store_mod.expire(store, now, ttl)
+        return self.make_expire_step()(store, now, ttl)
 
     def payload_sync(self, store: BucketStore, vec, *,
                      hyperplanes=None) -> BucketStore:
@@ -1301,14 +1398,7 @@ class IndexRuntime:
                     "re-sketch the announced vectors into packed words")
             vec = packed_mod.pack_codes(sketch_codes(vec, hyperplanes),
                                         self.cfg.params.k)
-        if self.mesh is not None:
-            return self._dist().make_payload_sync(self.cfg, self.mesh)(
-                store, vec)
-        return dataclasses.replace(
-            store,
-            payload=payload_sync_kernel(LOCAL, store.ids, store.payload, vec),
-            generation=store.generation + 1,
-        )
+        return self.make_payload_sync()(store, vec)
 
 
 # -----------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card,
-and the paper's sparse workload on the card against the CPU.
+the paper's sparse workload on the card against the CPU, and the serving
+layer's use of the card: the pipelined dispatch's CUDA events, a stage
+with no host sync, the churn writer's stream handoff, and a batch in
+flight across an update.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
 where `torch.cuda.is_available()` is false.  On the card:
@@ -10,6 +13,7 @@ where `torch.cuda.is_available()` is false.  On the card:
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -504,3 +508,123 @@ def test_fused_kernels_on_the_replica_view(dev, monkeypatch, R, mode):
         bi, bs = ops.fused_query(*a, **kw)
         topk_swaps(ws.cpu().numpy(), wi.cpu().numpy(), bs.cpu().numpy(),
                    bi.cpu().numpy(), tol=1e-5)
+
+
+# -- serving: pipelined dispatch on CUDA events, the writer's stream --------
+
+
+def _serve_world(dev, n=20000, d=64, k=8, L=4, seed=0):
+    """(backend over `LshEngine(use_kernels=True)` on the card, queries,
+    hyperplanes, host corpus, params); the test holds no other reference
+    to the engine's store or corpus."""
+    from repro_torch.core import LshParams, make_hyperplanes
+    from repro_torch.core.corpus import DenseCorpus
+    from repro_torch.serve import RuntimeBackend
+
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    params = LshParams(d=d, k=k, L=L, seed=seed + 1)
+    h = make_hyperplanes(params, device=dev)
+    vecs = torch.from_numpy(emb).to(dev)
+    store = build_store_host(hashing.sketch_codes_batched(vecs, h),
+                             params.num_buckets, capacity=128, device=dev)
+    engine = LshEngine(params, h, store, DenseCorpus(vecs), None,
+                       EngineConfig(use_kernels=True), device=dev)
+    return RuntimeBackend(engine), emb[:64].copy(), h, emb, params
+
+
+def _drifted(h, emb, params, seed, now=1):
+    """A churn epoch on the card: drifted vectors, the store rebuilt and
+    re-stamped; returns the update kwargs."""
+    from repro_torch.core.corpus import DenseCorpus
+    from repro_torch.core.store import insert_batch
+
+    rng = np.random.default_rng(seed)
+    moved = emb + 0.3 * rng.standard_normal(emb.shape).astype(np.float32)
+    moved /= np.linalg.norm(moved, axis=1, keepdims=True)
+    vecs = torch.from_numpy(moved).to(h.device)
+    codes = hashing.sketch_codes_batched(vecs, h)
+    store = build_store_host(codes, params.num_buckets, capacity=128,
+                             device=h.device)
+    store = insert_batch(store, torch.arange(emb.shape[0], dtype=torch.int32,
+                                             device=h.device), codes, now)
+    return dict(store=store, corpus=DenseCorpus(vecs))
+
+
+def test_pending_dispatch_ready_after_the_event(dev):
+    """`ready()` is False while the batch queues behind a sleep kernel and
+    True once its copies have landed; `wait()` gives the sync ids."""
+    backend, q, *_ = _serve_world(dev)
+    ex = np.arange(q.shape[0], dtype=np.int32)
+    want_i, want_s, _ = backend.dispatch(q, ex, 10)
+    torch.cuda._sleep(200_000_000)  # ~100 ms ahead of the batch
+    p = backend.dispatch_async(q, ex, 10)
+    assert not p.ready()
+    got_i, got_s, stats = p.wait()
+    assert p.ready() and int(stats) == 0
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_s, want_s)
+
+
+def test_engine_backend_stage_makes_no_host_sync(dev):
+    backend, q, *_ = _serve_world(dev)
+    ex = np.full(q.shape[0], -2, np.int32)
+    want = backend.dispatch(q, ex, 10)[0]  # warm: kernels, pinned blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p = backend.dispatch_async(q, ex, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(p.wait()[0], want)
+
+
+def test_writer_stream_install_then_depth4_batch_serves_the_new_store(dev):
+    from repro_torch.serve import (
+        ChurnWriter, FrontendConfig, RetrievalFrontend, RuntimeBackend)
+
+    backend, q, h, emb, params = _serve_world(dev)
+    # no cache: a cached result would answer the submits at intake, at
+    # the generation before the install
+    fe = RetrievalFrontend(backend, FrontendConfig(
+        m=10, max_batch=16, queue_capacity=128, cache=False,
+        pipeline_depth=4))
+    old, _ = fe.search(q)
+    with ChurnWriter(fe) as wr:
+        def prep():  # the new store is built on the writer's stream
+            torch.cuda._sleep(50_000_000)
+            return _drifted(h, emb, params, seed=3)
+        wr.submit(prep)
+        deadline = time.perf_counter() + 60
+        while wr.prepared < 1 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        assert wr.prepared == 1
+        tickets = [fe.submit(r) for r in q[:16]]
+        fe.step()  # the stage boundary installs, then stages at once
+        assert wr.installed == 1 and fe.inflight == 1
+        got = np.stack([fe.wait(t)[0] for t in tickets])
+    fresh = RuntimeBackend(LshEngine(
+        params, h, backend._store, backend._corpus, None,
+        EngineConfig(use_kernels=True), device=dev))
+    want = fresh.dispatch(q[:16], np.full(16, -2, np.int32), 10)[0]
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, old[:16])
+
+
+def test_update_while_in_flight_serves_the_old_store(dev):
+    """A batch staged before an update reads the store it was staged
+    with, even once the backend has dropped that store and the caching
+    allocator has handed out memory of its size again."""
+    backend, q, h, emb, params = _serve_world(dev)
+    ex = np.arange(q.shape[0], dtype=np.int32)
+    want = backend.dispatch(q, ex, 10)[0]
+    nbytes = backend._corpus.vectors.numel()
+    torch.cuda._sleep(200_000_000)
+    p = backend.dispatch_async(q, ex, 10)
+    backend.update(**_drifted(h, emb, params, seed=5))
+    junk = [torch.full((nbytes,), -7.0, device=dev) for _ in range(4)]
+    got = p.wait()[0]
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(backend.dispatch(q, ex, 10)[0], want)
+    del junk

@@ -22,7 +22,8 @@ PROBE = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(n for n in sys.modules
                     if n == "repro" or n.startswith("repro."))
-    print(len(names), leaked)
+    serve = sorted(n for n in names if "serve" in n)
+    print(len(names), leaked, serve)
 """)
 
 
@@ -31,10 +32,16 @@ def test_port_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
-    n, leaked = proc.stdout.split(" ", 1)
+    n, leaked, serve = proc.stdout.split(" ", 2)
     assert leaked.strip() == "[]"
     # package, core + 17 modules (analysis, churn, layered and metrics
-    # among them), kernels + 7 modules, launch + mesh + the node_churn
-    # and failure_churn CLIs, obs + flight, registry and trace, data +
-    # osn, convert
-    assert int(n) >= 38
+    # among them), kernels + 7 modules, launch + mesh + the node_churn,
+    # failure_churn and serve_retrieval CLIs, obs + flight, registry and
+    # trace, data + osn, convert, serve + frontend, lifecycle, loadgen,
+    # qcache, telemetry and writer
+    assert int(n) >= 46
+    assert serve.strip() == str([
+        "repro_torch.launch.serve_retrieval", "repro_torch.serve",
+        "repro_torch.serve.frontend", "repro_torch.serve.lifecycle",
+        "repro_torch.serve.loadgen", "repro_torch.serve.qcache",
+        "repro_torch.serve.telemetry", "repro_torch.serve.writer"])
