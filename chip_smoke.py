@@ -107,12 +107,42 @@ failure:
      hamming_words (mesh), fused_query and bucket_topk (failure) are
      held against plain on one serving batch's inputs, and one batch of
      each backend is profiled;
- 13. the kernels line.  Each path of phases 5-12 runs with the launch
-     counts set to 0 just before it and read just after (the serve cells
-     add into one path), and fails unless each kernel it should go
-     through was launched; a kernel's `launches` is the sum over the
-     paths, `launches_by_path` the counts of each.  `hamming` (single
-     word) is on no path: phase 4 holds it.
+ 14. the LM serving path (DESIGN.md Sec. 4), after phase 12 with the
+     index worlds freed, every cell with its wall time and peak device
+     memory: lm_gemma2 (gemma2-2b at full width, bf16 weights, random
+     from `--seed`, through `launch.serve.generate`: greedy, batch 8,
+     prompt 512, gen 64; prefill ms and the median decode step ms
+     beside their bounds, tokens/s, a torch.profiler trace of one
+     decode step, and a run of `generate` under
+     `set_sync_debug_mode("error")`); lm_gemma2_long (batch 1, prompt
+     5120, gen 16: the q-chunked prefill in every layer, the 4096 window
+     in the local ones); lm_check (an f32 copy: prefill + teacher-forced
+     decode_step logits against `forward` logits, 2 x 512 and 1 x 5120
+     prompts with 8 steps each, failing above 1e-3, the bf16 weights'
+     difference beside it; the card against the CPU at full width cut
+     26 -> 2 layers, forward logits on 2 x 64 tokens, failing above
+     1e-3); lm_archs (starcoder2-7b, codeqwen1.5-7b, phi3-medium-14b,
+     seamless-m4t-medium with frames [4, 64, 1024], phi-3-vision-4.2b
+     with 256 prefix embeds, each at full width, bf16, batch 4, prompt
+     64, gen 32, then freed; the f32 teacher-forced check at full width
+     cut to 2 layers, failing above 1e-3); lm_embed_index (path `lm`:
+     8192 users of 64 tokens in 256 communities sharing a 32-token
+     prefix, embedded by gemma2-2b in batches of 256 as mean-pooled
+     final hidden states, unit-normalised; `LshParams(d=2304, k=10,
+     L=4)`, `build_store_host` at C = 64; `LshEngine(cnb,
+     use_kernels=True)` on the first 1024 users, m = 10, own id
+     excluded, failing unless the same-community share exceeds 0.6 and
+     the ids equal the plain engine's under the near-tie rule;
+     `IndexRuntime(use_kernels=True)` dot search likewise against its
+     plain path, contains of each query's own id, failing on a miss;
+     simhash, bucket_topk, fused_query and fused_contains held against
+     plain on the inputs the path recorded);
+ 13. the kernels line.  Each path of phases 5-12 and 14 runs with the
+     launch counts set to 0 just before it and read just after (the
+     serve cells add into one path), and fails unless each kernel it
+     should go through was launched; a kernel's `launches` is the sum
+     over the paths, `launches_by_path` the counts of each.  `hamming`
+     (single word) is on no path: phase 4 holds it.
 
 Kernel times come from one CUDA event pair per call, recorded while the
 card still spins on a sleep kernel, so the host's launch pace stays out
@@ -142,6 +172,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense, tensor cores
 TIE = 1e-5                  # dot-score tolerance and near-tie width
 SPIN_CYCLES = 20_000_000    # ~10 ms of sleep kernel ahead of a timed call
 
@@ -279,7 +310,8 @@ def main() -> int:
     from repro_torch.core import runtime as rt_mod
     from repro_torch.core.corpus import DenseCorpus, exact_topk_dense
     from repro_torch.core.engine import EngineConfig, LshEngine
-    from repro_torch.core.hashing import LshParams, make_hyperplanes
+    from repro_torch.core.hashing import (LshParams, make_hyperplanes,
+                                          sketch_codes_batched)
     from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
     from repro_torch.core.store import BucketStore, build_store_host
     from repro_torch.data import osn
@@ -290,6 +322,7 @@ def main() -> int:
     from repro_torch.kernels import simhash as sh_mod
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_fused_cases import edge_case_rows
+    from torch_parity_rules import topk_swaps
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -816,6 +849,31 @@ def main() -> int:
                      2.0 * live * dw if kw.get("score", "dot") == "dot"
                      else 0.0)
 
+    def path_bound(name, a, kw):
+        """(bound_ms, bound_by) of one wrapper call on its recorded
+        inputs: the fused kernels as `fused_path_bound` counts them;
+        simhash x, the hyperplanes and the codes or words, and its
+        multiply-adds; bucket_topk the valid lanes' vectors, the queries,
+        the validity words and the top m, and their products; hamming
+        and hamming_words their inputs and outputs."""
+        if name in ("fused_query", "fused_contains"):
+            return fused_path_bound(name, a, kw)
+        if name == "simhash":
+            (n_x, d_x), (l_h, k_h, _) = a[0].shape, a[1].shape
+            out = (-(-l_h * k_h // 32) if kw.get("packed", False)
+                   else l_h)
+            return bound(n_x * d_x * 4 + l_h * k_h * d_x * 4 + n_x * out * 4,
+                         2.0 * n_x * d_x * l_h * k_h)
+        if name == "bucket_topk":
+            qa, cand, valid, m = a
+            n_valid = int(valid.sum())
+            d_c = cand.shape[-1]
+            return bound(n_valid * d_c * 4 + qa.numel() * 4
+                         + qa.shape[0] * (-(-cand.shape[1] // 32)) * 4
+                         + qa.shape[0] * m * 8, 2.0 * n_valid * d_c)
+        return bound(a[0].numel() * 4 + a[1].numel() * 4
+                     + a[1].shape[0] * a[1].shape[1] * 4)
+
     def hold_at_path_shapes(path, fn, names):
         """Hold the kernels behind the wrappers `names` against their plain
         versions on the very inputs the path gives them (one batch of
@@ -869,8 +927,7 @@ def main() -> int:
                 err, ties = 0.0, 0
                 k_ms = cuda_ms(torch, lambda: ops.hamming(*a), 5)
                 p_ms = cuda_ms(torch, lambda: plain(*a), 1)
-            b_ms, b_by = (fused_path_bound(name, a, kw) if name in (
-                "fused_query", "fused_contains") else (None, None))
+            b_ms, b_by = path_bound(name, a, kw)
             k = kernels[name]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k.setdefault("path_shapes", []).append(dict(
@@ -1879,6 +1936,338 @@ def main() -> int:
     if missing:
         raise AssertionError(f"serve: kernels never launched: {missing}")
 
+    # -- 14. the LM serving path (DESIGN.md Sec. 4) -------------------------
+    # the index worlds of phases 3-12 are gone; what is left is small
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import model as lm
+    from repro_torch.models.config import count_params
+
+    log(f"[lm] device bytes in use {torch.cuda.memory_allocated()} after "
+        f"the index phases")
+
+    @contextlib.contextmanager
+    def lm_cell(name):
+        """Print the wall time and peak device memory of one LM cell."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        log(f"[lm] {name}: cell wall {(time.perf_counter() - t0) * 1e3:.1f} "
+            f"ms, peak device bytes {torch.cuda.max_memory_allocated()} "
+            f"({smi})")
+
+    def weight_bytes(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def lm_generate(model, batch, gen, max_len):
+        """The serving driver's prefill and decode steps, as
+        `launch.serve.generate` runs them, with a CUDA event after the
+        prefill and after each decode step and no host sync in between:
+        (tokens [B, gen], prefill ms, [decode step ms], wall ms).  An
+        event pair spans the device timeline, idle gaps included, so a
+        step's time is its serving pace."""
+        prefill = lm_serve.make_prefill_step(model.cfg, max_len)
+        decode = lm_serve.make_decode_step(model.cfg)
+        pos0 = sum(batch[k].shape[1] for k in ("tokens", "prefix_embeds")
+                   if k in batch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(gen + 1)]
+        torch.cuda.synchronize()
+        with gc_paused():
+            t0 = time.perf_counter()
+            ev[0].record()
+            logits, states = prefill(model, batch)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            ev[1].record()
+            out = [tok]
+            for t in range(gen - 1):
+                tok, _, states = decode(model, states, tok, pos0 + t)
+                out.append(tok)
+                ev[t + 2].record()
+            toks = torch.stack(out, dim=1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        return toks, ms[0], ms[1:], wall
+
+    def lm_serve_run(name, model, batch, gen):
+        """Greedy generation through `launch.serve.generate` (the warm-up),
+        then a timed run of the same steps, which must give the same
+        tokens, all in [0, vocab).  Prints the timed run's prefill ms,
+        median decode step ms and tokens/s beside the bounds:
+        the decode step's weight bytes over the memory rate, and the
+        prefill's 2 x params x prompt tokens over the bf16 and fp32
+        peaks."""
+        cfg = model.cfg
+        prompt = sum(batch[k].shape[1] for k in ("tokens", "prefix_embeds")
+                     if k in batch)
+        max_len = prompt + gen + 8
+        want = lm_serve.generate(model, batch, steps=gen, max_len=max_len)
+        toks, pre_ms, steps, wall = lm_generate(model, batch, gen, max_len)
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: a token outside [0, vocab)")
+        if not torch.equal(toks, want):
+            raise AssertionError(f"{name}: the timed run's tokens differ "
+                                 f"from generate's")
+        b = toks.shape[0]
+        med = float(np.median(steps))
+        rate = b * gen / wall * 1e3
+        dec_b = weight_bytes(model) / HBM_BYTES_PER_S * 1e3
+        n_tok = b * prompt
+        pre_b16 = 2.0 * count_params(cfg) * n_tok / BF16_FLOPS_PER_S * 1e3
+        pre_b32 = 2.0 * count_params(cfg) * n_tok / FP32_FLOPS_PER_S * 1e3
+        log(f"[lm] {name}: {cfg.name} batch {b} prompt "
+            f"{batch['tokens'].shape[1]} gen {gen}: prefill {pre_ms:.3f} ms "
+            f"(bound {pre_b16:.3f} ms at the bf16 peak, {pre_b32:.3f} ms at "
+            f"the fp32 peak the f32 products run at), decode step median "
+            f"{med:.3f} ms (min {min(steps):.3f}, max {max(steps):.3f}; "
+            f"bound {dec_b:.3f} ms: {weight_bytes(model)} weight bytes over "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {rate:.1f} tokens/s, wall "
+            f"{wall:.1f} ms ({smi})")
+
+    def teacher_forced(model, b, s, steps):
+        """Max |prefill + decode_step logits - forward logits| at the same
+        positions: prefill of s tokens, then `steps` teacher-forced
+        decode steps, against one forward over s + steps tokens."""
+        batch = lm_serve.make_batch(model.cfg, b, s + steps, args.seed, dev)
+        off = batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch \
+            else 0
+        full = lm.forward(model, batch)
+        want = lm.logits_from_hidden(model, full[:, off + s - 1:
+                                                 off + s + steps])
+        del full
+        last, states = lm.prefill(model, dict(
+            batch, tokens=batch["tokens"][:, :s]), max_len=off + s + steps)
+        errs = [(last - want[:, 0]).abs().max()]
+        for t in range(steps):
+            lg, states = lm.decode_step(model, batch["tokens"][:, s + t],
+                                        states, off + s + t)
+            errs.append((lg - want[:, t + 1]).abs().max())
+        return float(torch.stack(errs).max())
+
+    gemma = get_config("gemma2-2b")
+    lm_wall = time.perf_counter()
+    with lm_cell("lm_gemma2"):
+        g16 = lm.init_model(gemma, args.seed, device=dev)
+        log(f"[lm] gemma2-2b: {weight_bytes(g16)} bf16 weight bytes, "
+            f"{count_params(gemma):.0f} params; every product after the "
+            f"embedding runs in f32 (the reference's sqrt(d_model) scale "
+            f"is a numpy f64 scalar, which promotes bf16)")
+        batch = lm_serve.make_batch(gemma, 8, 512, args.seed, dev)
+        lm_serve_run("lm_gemma2", g16, batch, 64)
+        # one decode step traced, on a state of the prompt
+        max_len = 512 + 64 + 8
+        logits, states = lm.prefill(g16, batch, max_len)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        decode = lm_serve.make_decode_step(gemma)
+        decode(g16, states, tok, 512)
+        rows, wall = profile_batch(torch, "lm_gemma2 decode step",
+                                   lambda: decode(g16, states, tok, 513),
+                                   top=12)
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        log(f"[lm] lm_gemma2 decode step: {launches} device ops (kernels and "
+            f"copies) a step, {launches / gemma.num_layers:.1f} a layer; "
+            f"busy share {busy / wall:.3f}: "
+            f"{'host-bound' if busy / wall < 0.5 else 'device-bound'}")
+        del logits, states
+        # the decode loop makes no host sync: any sync raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm_serve.generate(g16, batch, steps=8, max_len=max_len)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log("[lm] lm_gemma2: prefill and 7 decode steps ran under "
+            "set_sync_debug_mode('error'): no host sync")
+    with lm_cell("lm_gemma2_long"):
+        batch = lm_serve.make_batch(gemma, 1, 5120, args.seed, dev)
+        chunked = []
+        real_chunked = lm_layers._sdpa_qchunked
+
+        def counting(*a, **kw):
+            chunked.append(1)
+            return real_chunked(*a, **kw)
+
+        lm_layers._sdpa_qchunked = counting
+        try:
+            lm_serve_run("lm_gemma2_long", g16, batch, 16)
+        finally:
+            lm_layers._sdpa_qchunked = real_chunked
+        # generate's prefill and the timed one: every layer q-chunked
+        if len(chunked) != 2 * gemma.num_layers:
+            raise AssertionError(f"lm_gemma2_long: {len(chunked)} q-chunked "
+                                 f"attentions, expected "
+                                 f"{2 * gemma.num_layers}")
+        log(f"[lm] lm_gemma2_long: prefill of 5120 tokens took the q-chunked "
+            f"path in all {gemma.num_layers} layers; the 4096 window bites "
+            f"in the {gemma.num_layers // 2} local layers")
+    with lm_cell("lm_check"):
+        g32 = lm.init_model(dataclasses.replace(gemma, dtype="float32"),
+                            args.seed, device=dev)
+        for b, s in ((2, 512), (1, 5120)):
+            e32 = teacher_forced(g32, b, s, 8)
+            e16 = teacher_forced(g16, b, s, 8)
+            log(f"[lm] lm_check teacher-forced, batch {b} x prompt {s} + 8 "
+                f"steps: max |prefill/decode - forward| logits f32 {e32:.3g} "
+                f"(gate 1e-3), bf16 weights {e16:.3g}")
+            if e32 > 1e-3:
+                raise AssertionError(f"lm_check {b}x{s}: f32 teacher-forced "
+                                     f"error {e32} > 1e-3")
+        del g32, g16
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the card against the CPU: full width cut to 2 layers (one local,
+        # one global), the same weights, forward logits on 2 x 64 tokens
+        cut = dataclasses.replace(gemma, dtype="float32", num_layers=2)
+        g2 = lm.init_model(cut, args.seed, device=dev)
+        g2_cpu = lm.Model(cut, device="cpu")
+        g2_cpu.load_state_dict(g2.state_dict())
+        batch = lm_serve.make_batch(cut, 2, 64, args.seed, dev)
+        on_card = lm.logits_from_hidden(g2, lm.forward(g2, batch)).cpu()
+        on_cpu = lm.logits_from_hidden(g2_cpu, lm.forward(
+            g2_cpu, {k: v.cpu() for k, v in batch.items()}))
+        e_cpu = float((on_card - on_cpu).abs().max())
+        log(f"[lm] lm_check card vs CPU, gemma2-2b full width cut 26 -> 2 "
+            f"layers, forward logits on 2 x 64 tokens: max |diff| {e_cpu:.3g}"
+            f" (gate 1e-3)")
+        if e_cpu > 1e-3:
+            raise AssertionError(f"lm_check: card != CPU ({e_cpu})")
+        del g2, g2_cpu, on_card, on_cpu
+    for arch in ("starcoder2-7b", "codeqwen1.5-7b", "phi3-medium-14b",
+                 "seamless-m4t-medium", "phi-3-vision-4.2b"):
+        cfg = get_config(arch)
+        with lm_cell(f"lm_archs {arch}"):
+            model = lm.init_model(cfg, args.seed, device=dev)
+            batch = lm_serve.make_batch(cfg, 4, 64, args.seed, dev)
+            lm_serve_run(f"lm_archs {arch}", model, batch, 32)
+            del model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            cut = dataclasses.replace(
+                cfg, dtype="float32", num_layers=2,
+                encoder_layers=min(cfg.encoder_layers, 2))
+            err = teacher_forced(lm.init_model(cut, args.seed, device=dev),
+                                 2, 64, 8)
+            log(f"[lm] lm_archs {arch}: f32 teacher-forced at full width cut "
+                f"to 2 layers: {err:.3g} (gate 1e-3)")
+            if err > 1e-3:
+                raise AssertionError(f"lm_archs {arch}: teacher-forced error "
+                                     f"{err} > 1e-3")
+    with lm_cell("lm_embed_index"):
+        g16 = lm.init_model(gemma, args.seed, device=dev)
+        U, SEQ, N_COMM, PRE, NQ_LM, CAP_LM = 8192, 64, 256, 32, 1024, 64
+        rng_lm = np.random.default_rng(args.seed)
+        comm = rng_lm.integers(0, N_COMM, U)
+        toks = rng_lm.integers(0, gemma.vocab_size, (U, SEQ))
+        toks[:, :PRE] = rng_lm.integers(0, gemma.vocab_size,
+                                        (N_COMM, PRE))[comm]
+        toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = []
+        for s0 in range(0, U, 256):
+            hidden = lm.forward(g16, {"tokens": toks[s0:s0 + 256]})
+            e = hidden.mean(dim=1).float()
+            parts.append(e / torch.linalg.vector_norm(e, dim=1, keepdim=True))
+        emb = torch.cat(parts)
+        torch.cuda.synchronize()
+        embed_ms = (time.perf_counter() - t0) * 1e3 / (U // 256)
+        del g16, hidden, parts
+        lshp = LshParams(d=gemma.d_model, k=10, L=4, seed=args.seed)
+        h_lm = make_hyperplanes(lshp, device=dev)
+        qi = torch.arange(NQ_LM, device=dev)
+        ex_np = np.arange(NQ_LM)
+
+        def index_and_search():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            codes = sketch_codes_batched(emb, h_lm)
+            st = build_store_host(codes, lshp.num_buckets, CAP_LM,
+                                  payload=emb, device=dev)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            ids_st = BucketStore(st.ids, st.timestamps, st.write_ptr, None)
+            eng = LshEngine(lshp, h_lm, ids_st, DenseCorpus(emb), None,
+                            EngineConfig(variant="cnb", use_kernels=True),
+                            device=dev)
+            rt_lm = IndexRuntime(RuntimeConfig(
+                params=lshp, variant="cnb", m=M, use_kernels=True),
+                device=dev)
+            with gc_paused():
+                t0 = time.perf_counter()
+                r = eng.search(emb[:NQ_LM], m=M, exclude=ex_np)
+                eng_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                ids, sc, _ = rt_lm.search(h_lm, st, emb[:NQ_LM], exclude=qi)
+                torch.cuda.synchronize()
+                rt_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                hits, _ = rt_lm.contains(h_lm, st, emb[:NQ_LM], qi)
+                torch.cuda.synchronize()
+                ct_ms = (time.perf_counter() - t0) * 1e3
+            return (st, ids_st, eng, rt_lm, r, ids, sc, hits,
+                    dict(build_ms=build_ms, engine_search_ms=eng_ms,
+                         runtime_search_ms=rt_ms, contains_ms=ct_ms))
+
+        (st_lm, ids_lm, eng, rt_lm, r, ids, sc, hits, times) = counted(
+            "lm", ("simhash", "bucket_topk", "fused_query", "fused_contains"),
+            index_and_search)
+        occ_lm = st_lm.occupancy()
+        share = float(np.mean([comm[j] == comm[i]
+                               for i in range(NQ_LM) for j in r.ids[i]
+                               if j >= 0]))
+        plain_eng = LshEngine(lshp, h_lm, ids_lm, DenseCorpus(emb), None,
+                              EngineConfig(variant="cnb"), device=dev)
+        rp = plain_eng.search(emb[:NQ_LM], m=M, exclude=ex_np)
+        swaps_e = topk_swaps(rp.scores, rp.ids, r.scores, r.ids, tol=TIE)
+        rt_plain = IndexRuntime(RuntimeConfig(params=lshp, variant="cnb",
+                                              m=M), device=dev)
+        ids_p, sc_p, _ = rt_plain.search(h_lm, st_lm, emb[:NQ_LM], exclude=qi)
+        swaps_r = topk_swaps(sc_p.cpu(), ids_p.cpu(), sc.cpu(), ids.cpu(),
+                             tol=TIE)
+        n_hit = int(hits.sum())
+        # an own id missing from all L of its exact buckets was ring-evicted
+        # (each bucket keeps its last C writers): contains must miss it
+        own = sketch_codes_batched(emb[:NQ_LM], h_lm).long() % lshp.num_buckets
+        stored = (st_lm.ids[torch.arange(lshp.L, device=dev)[None, :], own]
+                  == qi[:, None, None]).any(-1).any(-1)
+        if not torch.equal(hits, stored | hits):
+            raise AssertionError("lm_embed_index: contains missed a stored "
+                                 "own id")
+        log(f"[lm] lm_embed_index: {U} users of {SEQ} tokens in {N_COMM} "
+            f"communities sharing a {PRE}-token prefix; embed "
+            f"{embed_ms:.1f} ms per 256 users; index (simhash sketch + "
+            f"build_store_host, k=10 L=4 C={CAP_LM}) {times['build_ms']:.1f} "
+            f"ms, bucket occupancy mean {float(occ_lm.float().mean()):.2f} "
+            f"max {int(occ_lm.max())}; {NQ_LM} queries: engine cnb "
+            f"{times['engine_search_ms']:.2f} ms, runtime dot "
+            f"{times['runtime_search_ms']:.2f} ms, contains "
+            f"{times['contains_ms']:.2f} ms a batch; same-community share "
+            f"{share:.4f} (gate > 0.6); kernel ids equal plain with near-tie "
+            f"swaps engine {swaps_e}, runtime {swaps_r}; contains of own id "
+            f"{n_hit} of {NQ_LM}, {NQ_LM - int(stored.sum())} own ids "
+            f"ring-evicted from all L buckets ({smi})")
+        if share <= 0.6:
+            raise AssertionError(f"lm_embed_index: community share {share}")
+        if n_hit != NQ_LM:
+            raise AssertionError(f"lm_embed_index: {NQ_LM - n_hit} own ids "
+                                 f"missed by contains")
+        with uncounted():
+            hold_at_path_shapes("lm", lambda: (
+                eng.search(emb[:NQ_LM], m=M, exclude=ex_np),
+                rt_lm.search(h_lm, st_lm, emb[:NQ_LM], exclude=qi),
+                rt_lm.contains(h_lm, st_lm, emb[:NQ_LM], qi)),
+                ("simhash", "bucket_topk", "fused_query", "fused_contains"))
+        del st_lm, ids_lm, eng, rt_lm, emb, plain_eng, rt_plain
+    log(f"[lm] phase 14 in {time.perf_counter() - lm_wall:.1f} s")
+
     # -- 13. kernels line ---------------------------------------------------
     for name, k in kernels.items():
         k["launches"] = sum(got[name] for got in by_path.values())
@@ -1887,7 +2276,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[kernels] launches in phases 5-12: "
+    log(f"[kernels] launches in phases 5-12 and 14: "
         f"{ {n: k['launches'] for n, k in kernels.items()} }")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

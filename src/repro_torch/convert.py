@@ -1,9 +1,9 @@
 """Carry state across from the JAX package.
 
-The port's counterpart of loading weights: hyperplanes, a bucket store
-and a dense or sparse corpus built by `repro` (JAX arrays, or numpy
-arrays in the same layout) become the port's objects, so both packages
-compute on the same state.  Nothing here imports JAX: `np.asarray` reads a JAX array
+The port's counterpart of loading weights: hyperplanes, a bucket store,
+a dense or sparse corpus and an LM's parameter tree built by `repro`
+(JAX arrays, or numpy arrays in the same layout) become the port's
+objects, so both packages compute on the same state.  Nothing here imports JAX: `np.asarray` reads a JAX array
 without it.  uint32 codes and words become int32 bit patterns.
 """
 
@@ -15,6 +15,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.corpus import DenseCorpus, SparseCorpus
 from repro_torch.core.store import BucketStore
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -62,3 +64,53 @@ def sparse_corpus_from(c=None, *, nnz_ids=None, nnz_vals=None, d=None,
     dev = resolve_device(device)
     return SparseCorpus(_tensor(nnz_ids, dev).to(torch.int32),
                         _tensor(nnz_vals, dev).float(), d=int(d))
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, paths joined with '.'."""
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _leaves(val, path + ".")
+        else:
+            yield path, val
+
+
+def _layer_leaves(blocks, n_layers: int, period: int, prefix: str):
+    """The reference stacks sub-layer j of every period on a leading
+    [num_periods] axis (`blocks/sub{j}/...`); layer i is period
+    i // period, sub i % period."""
+    for i in range(n_layers):
+        sub = blocks[f"sub{i % period}"]
+        for path, leaf in _leaves(sub):
+            yield f"{prefix}.{i}.{path}", np.asarray(leaf)[i // period]
+
+
+def model_from(params, cfg: ModelConfig, *, device=None) -> Model:
+    """The reference's LM parameter tree (`repro.models.model.init_model`'s
+    params, as JAX or numpy arrays) -> the port's `Model` holding the
+    same values.  bf16 leaves (ml_dtypes numpy arrays, which
+    `torch.from_numpy` refuses) travel through f32, exact both ways."""
+    model = Model(cfg, device=device)
+    src = dict(_layer_leaves(params["blocks"], cfg.num_layers,
+                             cfg.scan_period, "blocks"))
+    if cfg.encoder_layers:
+        src.update(_layer_leaves(params["encoder"]["blocks"],
+                                 cfg.encoder_layers, 1, "encoder"))
+    for key in ("embed", "lm_head", "prefix_proj", "final_norm",
+                "enc_norm"):
+        if key in params:
+            src[key] = np.asarray(params[key])
+    state = model.state_dict()
+    for name, leaf in src.items():
+        # norms are leaves in the reference, RmsNorm modules here
+        dst = state.get(name)
+        if dst is None:
+            dst = state[name + ".weight"]
+        a = np.array(leaf, np.float32)  # a writable copy
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {a.shape} != {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(a))
+    if len(src) != len(state):
+        raise ValueError(f"{len(src)} leaves for {len(state)} parameters")
+    return model

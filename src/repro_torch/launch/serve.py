@@ -1,0 +1,126 @@
+"""End-to-end LM serving driver: batched prefill, then greedy (or sampled)
+decode, on one device.
+
+The port of `repro.launch.serve`.  The decode loop keeps the tokens on
+the device and makes no host sync per step: each step's position is a
+host int, the next token an argmax on the device, and the tokens come
+back once, after the last step.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+        --smoke --device cpu --batch 4 --prompt-len 64 --gen 32
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import Tracer
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int):
+    def prefill(model: M.Model, batch):
+        return M.prefill(model, batch, max_len)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, greedy: bool = True):
+    def decode(model: M.Model, states, token, pos: int,
+               generator: torch.Generator | None = None):
+        logits, states = M.decode_step(model, token, states, pos)
+        if greedy:
+            nxt = torch.argmax(logits, dim=-1)
+        else:  # Gumbel-max: argmax(logits + Gumbel) samples softmax(logits)
+            e = torch.empty_like(logits).exponential_(generator=generator)
+            nxt = torch.argmax(logits - torch.log(e), dim=-1)
+        return nxt.to(torch.int32), logits, states
+
+    return decode
+
+
+def generate(model: M.Model, batch, steps: int, max_len: int,
+             greedy: bool = True, seed: int = 0) -> torch.Tensor:
+    """Prefill, then `steps - 1` decode steps.  Returns the [B, steps]
+    int32 tokens on the model's device (not synchronised)."""
+    cfg = model.cfg
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg, greedy)
+    logits, states = prefill(model, batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos0 = sum(batch[k].shape[1] for k in ("tokens", "prefix_embeds")
+               if k in batch)
+    gen = None if greedy else torch.Generator(
+        device=model.device).manual_seed(seed)
+    out = [tok]
+    for t in range(steps - 1):
+        tok, _, states = decode(model, states, tok, pos0 + t, gen)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+               device) -> dict:
+    """The driver's random request batch, drawn from numpy in the
+    reference's order: encoder frames, vision prefix embeds, tokens."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def normal(shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(x).to(device) * 0.02
+
+    if cfg.encoder_layers:
+        out["frames"] = normal((batch, prompt_len, cfg.d_model))
+    if cfg.modality == "vision_patches":
+        out["prefix_embeds"] = normal((batch, cfg.num_prefix_embeds,
+                                       cfg.d_model))
+    out["tokens"] = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh_data != 1 or args.mesh_model != 1:
+        raise ValueError("the port serves on one device: --mesh-data and "
+                         "--mesh-model must be 1 (ROADMAP 1 item 6)")
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    dev = resolve_device(args.device)
+    model = M.init_model(cfg, args.seed, device=dev)
+    batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
+    max_len = args.prompt_len + args.gen + 8
+    tracer = Tracer()
+    with tracer.span("lm/generate", cat="lm", batch=args.batch,
+                     gen=args.gen) as sp:
+        toks = generate(model, batch, steps=args.gen, max_len=max_len,
+                        seed=args.seed).cpu().numpy()
+    dt = sp.duration_s
+    print(f"[serve] generated {toks.shape} tokens in {dt:.1f}s "
+          f"({toks.size / dt:.1f} tok/s) on {dev}")
+    print("first sequences:", toks[:2, :16].tolist())
+    if not (np.all(toks >= 0) and np.all(toks < cfg.vocab_size)):
+        raise RuntimeError("generated a token outside the vocabulary")
+    print("[done]")
+
+
+if __name__ == "__main__":
+    main()

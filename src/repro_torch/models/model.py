@@ -1,0 +1,266 @@
+"""Model assembly: embeddings, the layer stack, heads, modality stubs.
+
+The port of `repro.models.model` for the architectures whose layers are
+all attention with dense MLPs: the decoder-only stacks (gemma2's local /
+global alternation and softcaps, qkv biases, GQA), the encoder-decoder
+(bidirectional encoder over frontend frames, decoder cross-attention)
+and the vision-prefix stack (patch embeddings prepended to the text).
+The recurrent mixers and the MoE layers are not ported yet, and a config
+that has one raises `NotImplementedError`.
+
+The layers run as a Python loop over `num_layers` blocks: layer i is the
+reference's period `i // scan_period`, sub-layer `i % scan_period`.
+
+Entry points, as the reference's:
+  forward(model, batch)         -> hidden [B, S, d]
+  logits_from_hidden(model, h)  -> f32 logits, final softcap applied
+  prefill(model, batch, max_len)-> (last logits [B, V], decode states)
+  decode_step(model, token, states, pos) -> (logits [B, V], states)
+
+Decode states are one dict per layer: `k` / `v` [B, max_len, Hkv, dh]
+self-attention caches, and for the encoder-decoder `xk` / `xv`, the
+projected encoder states.  `decode_step` writes each step's K / V into
+the caches in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Attention, Mlp, RmsNorm
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a layer kind the port lacks."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    if kinds - {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: {sorted(kinds - {'attn'})} layers are not ported "
+            f"yet (ROADMAP 1 item 8b, the recurrent mixers)")
+    if any(cfg.layer_is_moe(i) for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP 1 item "
+            f"8c)")
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, num_layers=cfg.encoder_layers, encoder_layers=0,
+        scan_period=1, moe_num_experts=0, attn_every=1, xlstm=False,
+    )
+
+
+class Block(nn.Module):
+    """One layer: norm1 + self-attention, with `cross` a norm_x + cross-
+    attention over the encoder states, then norm2 + MLP."""
+
+    def __init__(self, cfg: ModelConfig, local: bool, cross: bool, *,
+                 device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.local = local
+        self.norm1 = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.attn = Attention(cfg, **kw)
+        if cross:
+            self.cross = Attention(cfg, cross=True, **kw)
+            self.norm_x = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
+        else:
+            self.cross = None
+        self.norm2 = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.mlp = Mlp(cfg, **kw)
+
+    def forward(self, x, positions, enc_out=None, mode: str = "train",
+                state=None, pos: int | None = None):
+        """mode train | prefill | decode; returns (x, new state)."""
+        h = self.norm1(x)
+        if mode == "train":
+            mix = self.attn(h, positions, local=self.local)
+            st = {}
+        elif mode == "prefill":
+            mix, (ck, cv) = self.attn.prefill(h, positions, local=self.local)
+            st = {"k": ck, "v": cv}
+        else:
+            mix, ck, cv = self.attn.decode(h, state["k"], state["v"], pos,
+                                           local=self.local)
+            st = {"k": ck, "v": cv}
+        x = x + mix
+        if self.cross is not None:
+            hx = self.norm_x(x)
+            if mode == "decode":
+                cx, _, _ = self.cross.decode(hx, state["xk"], state["xv"],
+                                             pos, cross=True)
+                st.update(xk=state["xk"], xv=state["xv"])
+            else:
+                kx, vx = self.cross.project_kv(enc_out)
+                cx = self.cross(hx, positions, causal=False,
+                                kv_override=(kx, vx))
+                if mode == "prefill":
+                    st.update(xk=kx, xv=vx)
+            x = x + cx
+        x = x + self.mlp(self.norm2(x))
+        return x, st
+
+
+class Model(nn.Module):
+    """The parameters of one config, allocated empty on `device` in
+    `cfg.dtype`; `init_model` draws them, `convert.model_from` copies
+    them from the reference's tree."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        check_supported(cfg)
+        cfg.period_kinds()  # the layer pattern must tile num_layers
+        self.cfg = cfg
+        dev = resolve_device(device)
+        kw = dict(device=dev, dtype=_dtype(cfg))
+        d = cfg.d_model
+        self.embed = nn.Parameter(torch.empty((cfg.vocab_size, d), **kw),
+                                  requires_grad=False)
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty((d, cfg.vocab_size), **kw), requires_grad=False)
+        self.prefix_proj = nn.Parameter(
+            torch.empty((d, d), **kw), requires_grad=False
+        ) if cfg.num_prefix_embeds or cfg.encoder_layers else None
+        cross = cfg.encoder_layers > 0
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.layer_is_local_attn(i), cross, **kw)
+            for i in range(cfg.num_layers))
+        self.final_norm = RmsNorm(d, cfg.norm_eps, **kw)
+        if cfg.encoder_layers:
+            enc_cfg = _encoder_cfg(cfg)
+            self.encoder = nn.ModuleList(
+                Block(enc_cfg, False, False, **kw)
+                for _ in range(enc_cfg.num_layers))
+            self.enc_norm = RmsNorm(d, cfg.norm_eps, **kw)
+        else:
+            self.encoder = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
+    """A model with random weights drawn from a `torch.Generator` seeded
+    with `seed`, on the device, scaled as the reference's init scales
+    them (drawn in f32, then cast to `cfg.dtype`).  The draws are not
+    the reference's: carry its weights with `convert.model_from`."""
+    model = Model(cfg, device=device)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    model.embed.copy_(torch.randn(model.embed.shape, generator=g,
+                                  device=model.device) * 0.02)
+    for p in (model.lm_head, model.prefix_proj):
+        if p is not None:
+            p.copy_(torch.randn(p.shape, generator=g, device=model.device)
+                    / math.sqrt(p.shape[0]))
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(model: Model, batch) -> torch.Tensor:
+    cfg, dt = model.cfg, _dtype(model.cfg)
+    parts = []
+    if "prefix_embeds" in batch:
+        pe = batch["prefix_embeds"].to(dt)
+        parts.append(pe @ model.prefix_proj)
+    if "tokens" in batch:
+        # the reference scales by a numpy f64 scalar, which promotes the
+        # bf16 rows to f32: the decoder's residual stream (and so every
+        # product after it) runs in f32 whatever cfg.dtype says
+        parts.append(model.embed[batch["tokens"]].float()
+                     * math.sqrt(cfg.d_model))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.float() for p in parts], dim=1)
+
+
+def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over frontend-provided frame embeddings."""
+    dt = _dtype(model.cfg)
+    x = frames.to(dt) @ model.prefix_proj
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
+    for blk in model.encoder:
+        x = x + blk.attn(blk.norm1(x), positions, causal=False)
+        x = x + blk.mlp(blk.norm2(x))
+    return model.enc_norm(x)
+
+
+def _run(model: Model, batch, mode: str):
+    enc_out = (_encode(model, batch["frames"]) if model.cfg.encoder_layers
+               else None)
+    x = _embed_inputs(model, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None].expand(x.shape[:2])
+    states = []
+    for blk in model.blocks:
+        x, st = blk(x, positions, enc_out=enc_out, mode=mode)
+        states.append(st)
+    return model.final_norm(x), states
+
+
+def forward(model: Model, batch) -> torch.Tensor:
+    """Full-sequence forward.
+
+    batch keys: tokens [B, S_text] and/or prefix_embeds [B, P, d];
+    frames [B, S_src, d] for enc-dec.  Returns hidden [B, S, d].
+    """
+    return _run(model, batch, "train")[0]
+
+
+def logits_from_hidden(model: Model, hidden: torch.Tensor) -> torch.Tensor:
+    dt = hidden.dtype
+    if model.lm_head is None:
+        logits = hidden @ model.embed.to(dt).T
+    else:
+        logits = hidden @ model.lm_head.to(dt)
+    logits = logits.float()
+    c = model.cfg.final_logit_softcap
+    if c > 0:
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def prefill(model: Model, batch, max_len: int):
+    """Returns (last_logits [B, V], decode states).  Self-attention
+    caches are padded to max_len so decode_step extends them in place;
+    cross caches keep the encoder length."""
+    hidden, states = _run(model, batch, "prefill")
+    for st in states:
+        for key in ("k", "v"):
+            c = st[key]
+            pad = c.new_zeros((c.shape[0], max_len - c.shape[1])
+                              + c.shape[2:])
+            st[key] = torch.cat([c, pad], dim=1)
+    return logits_from_hidden(model, hidden[:, -1:, :])[:, 0], states
+
+
+def decode_step(model: Model, token: torch.Tensor, states, pos: int):
+    """token: [B] int on the model's device; pos: the host int position.
+    Returns (logits [B, V], states), the caches written in place."""
+    x = _embed_inputs(model, {"tokens": token[:, None]})
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    new_states = []
+    for blk, st in zip(model.blocks, states):
+        x, nst = blk(x, positions, mode="decode", state=st, pos=pos)
+        new_states.append(nst)
+    x = model.final_norm(x)
+    return logits_from_hidden(model, x)[:, 0], new_states

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card,
 the paper's sparse workload on the card against the CPU, and the serving
 layer's use of the card: the pipelined dispatch's CUDA events, a stage
-with no host sync, the churn writer's stream handoff, and a batch in
-flight across an update.
+with no host sync, the churn writer's stream handoff, a batch in
+flight across an update; and the LM serving path: the SMOKE models on
+the card against the CPU, a decode loop with no host sync, and the
+index kernels at gemma2-2b's width (D = 2304).
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
 where `torch.cuda.is_available()` is false.  On the card:
@@ -628,3 +630,135 @@ def test_update_while_in_flight_serves_the_old_store(dev):
     np.testing.assert_array_equal(got, want)
     assert not np.array_equal(backend.dispatch(q, ex, 10)[0], want)
     del junk
+
+
+# -- the LM serving path: the models on the card, the index at D = 2304 -----
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 products in full fp32 (TF32 alone exceeds 1e-4)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved[0]
+    torch.set_float32_matmul_precision(saved[1])
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma2-2b", "starcoder2-7b", "codeqwen1.5-7b", "phi3-medium-14b",
+    "seamless-m4t-medium", "phi-3-vision-4.2b"])
+def test_smoke_model_on_card_equals_cpu(dev, no_tf32, arch):
+    """Forward logits, prefill and 4 teacher-forced decode steps of the
+    SMOKE config in f32, on the card against the CPU on the same
+    weights, within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = M.init_model(cfg, 0, device="cpu")
+    card = M.Model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    outs = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        b = make_batch(cfg, 2, 16, 0, d)
+        got = [M.logits_from_hidden(model, M.forward(model, b))]
+        last, st = M.prefill(model, dict(b, tokens=b["tokens"][:, :12]), 24)
+        got.append(last)
+        off = cfg.num_prefix_embeds if "prefix_embeds" in b else 0
+        for t in range(4):
+            lg, st = M.decode_step(model, b["tokens"][:, 12 + t], st,
+                                   off + 12 + t)
+            got.append(lg)
+        outs.append([x.cpu() for x in got])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_lm_decode_loop_makes_no_host_sync(dev):
+    """`generate` (prefill and every decode step) runs under sync-debug
+    "error"; its tokens equal a run outside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma2-2b", smoke=True)
+    model = M.init_model(cfg, 0, device=dev)
+    batch = make_batch(cfg, 2, 16, 0, dev)
+    want = generate(model, batch, steps=8, max_len=32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = generate(model, batch, steps=8, max_len=32)
+        sampled = generate(model, batch, steps=8, max_len=32, greedy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+
+
+def _wide_index(dev, n=4096, d=2304, k=10, L=4, c=64, seed=0):
+    """Unit vectors at gemma2-2b's width in 64 tight clusters, their
+    store at capacity c (payload kept), the hyperplanes and params."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centres = torch.randn((64, d), generator=g, device=dev)
+    emb = centres[torch.arange(n, device=dev) % 64] \
+        + 0.3 * torch.randn((n, d), generator=g, device=dev)
+    emb = torch.nn.functional.normalize(emb, dim=-1)
+    params = hashing.LshParams(d=d, k=k, L=L, seed=seed)
+    h = hashing.make_hyperplanes(params, device=dev)
+    store = build_store_host(hashing.sketch_codes_batched(emb, h),
+                             params.num_buckets, c, payload=emb, device=dev)
+    return emb, params, h, store
+
+
+def test_bucket_topk_kernel_at_model_width(dev):
+    """The engine chunk's shape at D = 2304: 128 rows x 11 probes x 64
+    lanes; ids equal plain up to near ties, scores within 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(2304)
+    q = torch.nn.functional.normalize(
+        torch.randn((128, 2304), generator=g, device=dev), dim=-1)
+    cand = torch.nn.functional.normalize(
+        q[:, None] + torch.randn((128, 704, 2304), generator=g, device=dev),
+        dim=-1)
+    valid = torch.rand((128, 704), generator=g, device=dev) < 0.6
+    gs, gi = ops.bucket_topk(q, cand, valid, 10)
+    ws, wi = bt.bucket_topk_plain(q, cand, bt.pack_valid(valid), 10)
+    topk_swaps(ws.cpu().numpy(), wi.cpu().numpy(), gs.cpu().numpy(),
+               gi.cpu().numpy(), tol=1e-5)
+
+
+def test_fused_kernels_at_model_width(dev):
+    """IndexRuntime(use_kernels=True) dot search (fused_query) and
+    contains (fused_contains) over a D = 2304 store equal the plain
+    staged path; the engine's bucket_topk path equals its plain path."""
+    from repro_torch.core.corpus import DenseCorpus
+    from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
+    from repro_torch.core.store import BucketStore
+
+    emb, params, h, store = _wide_index(dev)
+    q, ex = emb[:512], torch.arange(512, device=dev, dtype=torch.int32)
+    ops.reset_launches()
+    fused = IndexRuntime(RuntimeConfig(params=params, variant="cnb", m=10,
+                                       use_kernels=True), device=dev)
+    gi, gs, _ = fused.search(h, store, q, exclude=ex)
+    hits, _ = fused.contains(h, store, q, ex)
+    assert ops.LAUNCHES["fused_query"] >= 1
+    assert ops.LAUNCHES["fused_contains"] >= 1
+    plain = IndexRuntime(RuntimeConfig(params=params, variant="cnb", m=10),
+                         device=dev)
+    wi, ws, _ = plain.search(h, store, q, exclude=ex)
+    topk_swaps(ws.cpu().numpy(), wi.cpu().numpy(), gs.cpu().numpy(),
+               gi.cpu().numpy(), tol=1e-5)
+    assert torch.equal(hits, plain.contains(h, store, q, ex)[0])
+    ids_only = BucketStore(store.ids, store.timestamps, store.write_ptr, None)
+    engines = [LshEngine(params, h, ids_only, DenseCorpus(emb), None,
+                         EngineConfig(use_kernels=kern), device=dev)
+               for kern in (True, False)]
+    (r_k, r_p) = [e.search(q, m=10, exclude=ex.cpu().numpy())
+                  for e in engines]
+    assert ops.LAUNCHES["bucket_topk"] >= 1
+    topk_swaps(r_p.scores, r_p.ids, r_k.scores, r_k.ids, tol=1e-5)

@@ -23,7 +23,8 @@ PROBE = textwrap.dedent("""
     leaked = sorted(n for n in sys.modules
                     if n == "repro" or n.startswith("repro."))
     serve = sorted(n for n in names if "serve" in n)
-    print(len(names), leaked, serve)
+    lm = sorted(n for n in names if ".models" in n or ".configs" in n)
+    print(len(names), leaked, serve, "|", lm)
 """)
 
 
@@ -32,16 +33,28 @@ def test_port_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
-    n, leaked, serve = proc.stdout.split(" ", 2)
+    n, leaked, rest = proc.stdout.split(" ", 2)
+    serve, lm = rest.split(" | ")
     assert leaked.strip() == "[]"
     # package, core + 17 modules (analysis, churn, layered and metrics
     # among them), kernels + 7 modules, launch + mesh + the node_churn,
-    # failure_churn and serve_retrieval CLIs, obs + flight, registry and
-    # trace, data + osn, convert, serve + frontend, lifecycle, loadgen,
-    # qcache, telemetry and writer
-    assert int(n) >= 46
+    # failure_churn, serve_retrieval and serve (LM) CLIs, obs + flight,
+    # registry and trace, data + osn, convert, serve + frontend,
+    # lifecycle, loadgen, qcache, telemetry and writer, models + config,
+    # layers and model, configs + shapes and the ten arch files
+    assert int(n) >= 63
+    assert lm.strip() == str(
+        ["repro_torch.configs"]
+        + [f"repro_torch.configs.{m}" for m in (
+            "codeqwen15_7b", "deepseek_moe_16b", "gemma2_2b",
+            "jamba_v01_52b", "llama4_maverick_400b", "phi3_medium_14b",
+            "phi3_vision_4_2b", "seamless_m4t_medium", "shapes",
+            "starcoder2_7b", "xlstm_1_3b")]
+        + ["repro_torch.models", "repro_torch.models.config",
+           "repro_torch.models.layers", "repro_torch.models.model"])
     assert serve.strip() == str([
-        "repro_torch.launch.serve_retrieval", "repro_torch.serve",
+        "repro_torch.launch.serve", "repro_torch.launch.serve_retrieval",
+        "repro_torch.serve",
         "repro_torch.serve.frontend", "repro_torch.serve.lifecycle",
         "repro_torch.serve.loadgen", "repro_torch.serve.qcache",
         "repro_torch.serve.telemetry", "repro_torch.serve.writer"])
