@@ -49,7 +49,23 @@ failure:
      Each cell holds its owner stage's fused_query, and, through the
      cache or NB stage, bucket_topk or hamming_words, against the plain
      version on the very inputs the path gives them, recorded from one
-     batch, with times;
+     batch, with times.  Then one insert + payload-sync batch of phase
+     8's re-announces followed by a search (16 nodes, hamming cnb).
+     The process mesh, after those one-process cells: NCCL at world
+     size 1 (`init_process_mesh`, a free port, rank 0), `make_zone_mesh`
+     then giving this rank's `ProcessZoneMesh`, every exchange through
+     the group's collective; the same cells again (the refreshes, the 16
+     hamming and 4 dot search cells, contains, the insert chain), each
+     equal to its one-process cell exactly (ids, scores, counters, hits,
+     cache and store), with ms beside the one-process cell's and a
+     profile of one call: a cell that runs a ppermute must show an NCCL
+     kernel (`ncclDevKernel_SendRecv`), every other cell NCCL's
+     `nccl:<op>` annotations over its one-rank copies (world 1 launches
+     no NCCL kernel for those), annotations kept out of device time; their
+     launches add into one path, `mesh_procs`, and each kernel they
+     launch (fused_query, fused_contains, hamming_words, bucket_topk) is
+     held against plain on their recorded inputs; the process group is
+     destroyed at the end of the phase;
  10. the paper's workload: the LIVEJOURNAL_S OSN corpus (117 000
      users, 24 576 interests, k = 11; `repro_torch.data.osn`) with L = 4,
      hyperplane seed 13 and bucket capacity 256, as
@@ -161,6 +177,7 @@ import dataclasses
 import gc
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -237,10 +254,14 @@ def bound(nbytes: float, flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_batch(torch, path: str, fn, top: int = 10) -> None:
+def profile_batch(torch, path: str, fn, top: int = 10):
     """Trace one call of `fn` with torch.profiler and print the device-side
     rows (kernels and copies, the top `top` by time), their total against
-    the host-clock wall time (the busy share), and each row's count."""
+    the host-clock wall time (the busy share), and each row's count.
+
+    GPU user-annotation rows (NCCL's `nccl:<op>` among them) span the
+    kernels and copies they wrap, so they are left out of the busy time
+    and returned apart.  Returns (rows, wall ms, annotation rows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -251,15 +272,23 @@ def profile_batch(torch, path: str, fn, top: int = 10) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows, spans = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            note = (getattr(e, "is_user_annotation", False)
+                    or e.key.startswith("nccl:"))
+            (spans if note else rows).append(
+                (e.self_device_time_total / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"[profile] {path}: device {busy:.3f} ms of {wall:.3f} ms wall "
         f"(busy share {busy / wall:.3f})")
     for ms, count, key in rows[:top]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-    return rows, wall
+    for ms, count, key in sorted(spans, reverse=True):
+        log(f"[profile]   annotation, not device time: {ms:9.3f} ms  "
+            f"x{count:<5d} {key[:70]}")
+    return rows, wall, spans
 
 
 def compare_topk(ki, ks, pi, ps, what: str,
@@ -1116,8 +1145,50 @@ def main() -> int:
     del st1, st2
 
     # -- 9. the mesh: n CAN nodes on this one card -------------------------
+    import torch.distributed as tdist
+
     from repro_torch.core import distributed as dist_mod
-    from repro_torch.launch.mesh import make_zone_mesh
+    from repro_torch.launch.mesh import (ProcessZoneMesh, init_process_mesh,
+                                         make_zone_mesh)
+
+    # each cell's label -> its one-process outputs and ms, which the same
+    # cell on the process mesh must equal exactly
+    one_proc = {}
+
+    def procs_check(label, got, ms, trace, sendrecv):
+        """Hold a process-mesh cell's outputs `got` against the one-process
+        cell's exactly, print its ms beside that cell's, and read the NCCL
+        part of the trace of one batch (`trace`, from `profile_batch`).
+
+        At world 1, NCCL runs all_to_all with even splits, all_gather and
+        all_reduce on its one-rank path: device copies under an
+        `nccl:<op>` annotation, with no NCCL kernel.  A ppermute's uneven
+        all_to_all launches `ncclDevKernel_SendRecv`.  So a cell that
+        runs a ppermute (`sendrecv`) fails without an NCCL kernel in its
+        trace, and every other cell fails without NCCL's annotations."""
+        want = one_proc[label]
+        for a, b in zip(got, want[:-1]):
+            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+            if not same:
+                raise AssertionError(f"mesh_procs {label}: differs from the "
+                                     f"one-process mesh")
+        rows, _, spans = trace
+        kernels = [r for r in rows if r[2].startswith("ncclDevKernel")]
+        notes = [r for r in spans if r[2].startswith("nccl:")]
+        if not notes or (sendrecv and not kernels):
+            raise AssertionError(
+                f"mesh_procs {label}: the trace of one batch shows "
+                f"{len(kernels)} NCCL kernels and {len(notes)} NCCL "
+                f"annotations")
+        names = (", ".join(sorted({r[2] for r in kernels})) if kernels
+                 else "annotation-only: one-rank copies")
+        log(f"[procs] {label}: equal to the one-process mesh exactly; "
+            f"{ms:.3f} ms, one process {want[-1]:.3f} ms; NCCL kernels "
+            f"{sum(r[0] for r in kernels):.3f} device ms of one call in "
+            f"{sum(r[1] for r in kernels)} launches ({names}); NCCL "
+            f"annotations {sum(r[1] for r in notes)} spanning "
+            f"{sum(r[0] for r in notes):.3f} ms "
+            f"({', '.join(sorted({r[2] for r in notes}))})")
 
     def mesh_runtime(n, score, variant, **kw):
         kw.setdefault("cap_factor", float(n))
@@ -1127,36 +1198,60 @@ def main() -> int:
             score=score, **kw), mesh=make_zone_mesh(n, device=dev))
 
     def refreshed(n, score, st):
-        """The CNB cache of an n-node mesh, with the refresh's time."""
+        """The CNB cache of an n-node mesh, with the refresh's time; on the
+        process mesh, held against the one-process cache exactly."""
         rt = mesh_runtime(n, score, "cnb")
         st = rt.shard_store(st)
+        procs = isinstance(rt.mesh, ProcessZoneMesh)
+        refresh = (lambda: counted("mesh_procs", (), lambda: rt.refresh_cache(
+            st))) if procs else (lambda: rt.refresh_cache(st))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache = rt.refresh_cache(st)
+        cache = refresh()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         moved = sum(c.numel() * c.element_size() for c in cache)
         per_node = dist_mod.estimate_refresh_bytes(rt.cfg, C, D)
-        log(f"[mesh] refresh_cache n={n} {score}: {ms:.3f} ms, {moved} "
-            f"bytes written on the card; wire model {per_node} bytes per "
-            f"node, {per_node * n} in all")
+        label = f"refresh_cache n={n} {score}"
+        log(f"[mesh] {label}{' (processes)' if procs else ''}: {ms:.3f} ms, "
+            f"{moved} bytes written on the card; wire model {per_node} bytes "
+            f"per node, {per_node * n} in all")
+        if procs:
+            trace = profile_batch(torch, "mesh_procs " + label,
+                                  lambda: rt.refresh_cache(st))
+            procs_check(label, cache, ms, trace, sendrecv=True)
+        else:
+            one_proc[label] = (*cache, ms)
         return st, cache
 
     def mesh_cell(n, score, variant, st, cache, nq, expect, **kw):
+        """One search cell; on the process mesh its launches add into the
+        path `mesh_procs` and its outputs are held against the
+        one-process cell's."""
         rt = mesh_runtime(n, score, variant, **kw)
+        procs = isinstance(rt.mesh, ProcessZoneMesh)
         c = cache if variant == "cnb" else None
-        path = (f"mesh n={n} {score} {variant} {rt.cfg.routing} "
-                f"cap_factor={rt.cfg.cap_factor:g}")
+        label = (f"mesh n={n} {score} {variant} {rt.cfg.routing} "
+                 f"cap_factor={rt.cfg.cap_factor:g}")
+        path = "mesh_procs" if procs else label
         outs, ms = counted(path, expect,
                            lambda: timed_batches(rt, st, nq, cache=c))
         stats = outs[0][2].host()
         wire = dist_mod.estimate_query_bytes(rt.cfg, nq, D, rt.n_devices)
-        hold_at_path_shapes(path, lambda: rt.search(
-            h, st, x[qids[0][:nq]], cache=c),
-            ("bucket_topk", "hamming", "fused_query"))
-        profile_batch(torch, path, lambda: rt.search(
-            h, st, x[qids[0][:nq]], cache=c))
-        log(f"[cell] {path}: {ms:.3f} ms per batch of {nq}, "
+        hold_at_path_shapes(f"{path} {label}" if procs else path,
+                            lambda: rt.search(h, st, x[qids[0][:nq]],
+                                              cache=c),
+                            ("bucket_topk", "hamming", "fused_query"))
+        trace = profile_batch(torch, f"{path} {label}" if procs else path,
+                              lambda: rt.search(h, st, x[qids[0][:nq]],
+                                                cache=c))
+        if procs:
+            procs_check(label, (outs[0][0], outs[0][1], stats), ms, trace,
+                        sendrecv=variant == "nb")
+        else:
+            one_proc[label] = (outs[0][0], outs[0][1], stats, ms)
+        log(f"[cell] {'processes: ' if procs else ''}{label}: {ms:.3f} ms "
+            f"per batch of {nq}, "
             f"{nq / ms * 1e3:.0f} queries/s; probes_routed "
             f"{stats['probes_routed']}, nodes_contacted "
             f"{stats['nodes_contacted']}, dropped {stats['dropped_probes']}; "
@@ -1164,36 +1259,61 @@ def main() -> int:
             f"results {wire['results']}, neighbor {wire['neighbor']})")
         return outs[0], stats
 
-    st16, cache16 = refreshed(16, "hamming", store_h)
-    for variant, routing in (("lsh", "alltoall"), ("nb", "alltoall"),
-                             ("cnb", "alltoall"), ("cnb", "allgather")):
-        expect = ("fused_query",) + (() if variant == "lsh"
-                                     else ("hamming_words",))
-        (ids_m, sc_m, _), stats = mesh_cell(
-            16, "hamming", variant, st16, cache16, NQ, expect,
-            routing=routing)
-        want_i, want_s = one_node[("hamming", variant)]
-        if stats["dropped_probes"] != 0:
-            raise AssertionError(f"mesh {variant} {routing}: probes dropped")
-        if not (torch.equal(ids_m, want_i) and torch.equal(sc_m, want_s)):
-            raise AssertionError(f"mesh n=16 hamming {variant} {routing}: "
-                                 f"results differ from the 1-node runtime's")
-    mesh_cell(16, "hamming", "cnb", st16, cache16, NQ,
-              ("fused_query", "hamming_words"), cap_factor=2.0)
-    for variant in ("cnb", "nb"):
+    def contains_cell(variant, st, cache):
+        """16-node contains of each query's own id, equal to the 1-node
+        contains; on the process mesh, also to the one-process cell."""
         rt = mesh_runtime(16, "hamming", variant)
-        c = cache16 if variant == "cnb" else None
-        got_h, cstats = counted(
-            f"mesh n=16 contains {variant}", ("fused_contains",),
-            lambda: rt.contains(h, st16, q, qids[0], cache=c))
+        procs = isinstance(rt.mesh, ProcessZoneMesh)
+        c = cache if variant == "cnb" else None
+        label = f"mesh n=16 contains {variant}"
+
+        def run():
+            return rt.contains(h, st, q, qids[0], cache=c)
+
+        got_h, cstats = counted("mesh_procs" if procs else label,
+                                ("fused_contains",), run)
         if int(cstats) != 0 or not torch.equal(got_h, hits):
             raise AssertionError(f"mesh contains {variant} != 1-node")
-        ms = timed_contains(rt, st16, cache=c)
-        log(f"[cell] mesh n=16 contains {variant}: {ms:.3f} ms per batch of "
-            f"{NQ}, {NQ / ms * 1e3:.0f} contains/s")
-    log("[mesh] n=16 hamming lsh/nb/cnb (alltoall) and cnb (allgather): "
-        "ids and scores equal the 1-node runtime's exactly, 0 dropped; "
-        "contains nb/cnb equal the 1-node contains")
+        ms = timed_contains(rt, st, cache=c)
+        log(f"[cell] {'processes: ' if procs else ''}{label}: {ms:.3f} ms "
+            f"per batch of {NQ}, {NQ / ms * 1e3:.0f} contains/s")
+        if procs:
+            hold_at_path_shapes(f"mesh_procs {label}", run,
+                                ("fused_contains",))
+            trace = profile_batch(torch, f"mesh_procs {label}", run)
+            procs_check(label, (got_h, cstats.host()), ms, trace,
+                        sendrecv=variant == "nb")
+        else:
+            one_proc[label] = (got_h, cstats.host(), ms)
+
+    def mesh16(st16, cache16):
+        """The 16-node hamming cells: search, the cap_factor 2 cell with
+        its drops, and contains."""
+        for variant, routing in (("lsh", "alltoall"), ("nb", "alltoall"),
+                                 ("cnb", "alltoall"), ("cnb", "allgather")):
+            expect = ("fused_query",) + (() if variant == "lsh"
+                                         else ("hamming_words",))
+            (ids_m, sc_m, _), stats = mesh_cell(
+                16, "hamming", variant, st16, cache16, NQ, expect,
+                routing=routing)
+            want_i, want_s = one_node[("hamming", variant)]
+            if stats["dropped_probes"] != 0:
+                raise AssertionError(f"mesh {variant} {routing}: probes "
+                                     f"dropped")
+            if not (torch.equal(ids_m, want_i) and torch.equal(sc_m, want_s)):
+                raise AssertionError(f"mesh n=16 hamming {variant} {routing}"
+                                     f": results differ from the 1-node "
+                                     f"runtime's")
+        mesh_cell(16, "hamming", "cnb", st16, cache16, NQ,
+                  ("fused_query", "hamming_words"), cap_factor=2.0)
+        for variant in ("cnb", "nb"):
+            contains_cell(variant, st16, cache16)
+        log("[mesh] n=16 hamming lsh/nb/cnb (alltoall) and cnb (allgather): "
+            "ids and scores equal the 1-node runtime's exactly, 0 dropped; "
+            "contains nb/cnb equal the 1-node contains")
+
+    st16, cache16 = refreshed(16, "hamming", store_h)
+    mesh16(st16, cache16)
     # -- 12. serving: the 16-node mesh backend (serve_mesh) ------------------
     from repro_torch.launch import serve_retrieval as sr_cli
     from repro_torch.serve import (
@@ -1299,22 +1419,87 @@ def main() -> int:
             f"{st_m['p50_us']:.0f} us p99 {st_m['p99_us']:.0f} us; host "
             f"syncs in one stage of a {len(rec_m.q)}-row batch {n_sync_m}")
         del backend_m, fe_m, seen_m, rec_m, rt1
-    del cache16
 
     n_dot = 256
+
+    def mesh4(st4, cache4):
+        """The 4-node dot cells, equal to the 1-node runtime's up to near
+        ties (the mesh scores other rows together)."""
+        for variant in ("cnb", "nb"):
+            (ids_m, sc_m, _), stats = mesh_cell(
+                4, "dot", variant, st4, cache4, n_dot,
+                ("fused_query", "bucket_topk"))
+            want_i, want_s = one_node[("dot", variant)]
+            err, ties = compare_topk(ids_m, sc_m, want_i[:n_dot],
+                                     want_s[:n_dot], f"mesh n=4 dot {variant}")
+            if stats["dropped_probes"] != 0:
+                raise AssertionError(f"mesh n=4 dot {variant}: probes "
+                                     f"dropped")
+            log(f"[mesh] n=4 dot {variant}: ids equal the 1-node runtime's "
+                f"(near-tie swaps {ties}, max score err {err:.3g})")
+
     st4, cache4 = refreshed(4, "dot", store)
-    for variant in ("cnb", "nb"):
-        (ids_m, sc_m, _), stats = mesh_cell(
-            4, "dot", variant, st4, cache4, n_dot,
-            ("fused_query", "bucket_topk"))
-        want_i, want_s = one_node[("dot", variant)]
-        err, ties = compare_topk(ids_m, sc_m, want_i[:n_dot],
-                                 want_s[:n_dot], f"mesh n=4 dot {variant}")
-        if stats["dropped_probes"] != 0:
-            raise AssertionError(f"mesh n=4 dot {variant}: probes dropped")
-        log(f"[mesh] n=4 dot {variant}: ids equal the 1-node runtime's "
-            f"(near-tie swaps {ties}, max score err {err:.3g})")
-    del cache4
+    mesh4(st4, cache4)
+
+    # one insert + payload-sync batch of phase 8's re-announces, then a
+    # search, on the 16-node hamming mesh; `latest` is every user's vector
+    latest = x.clone()
+    latest[re_ids] = moved
+
+    def chain_cell():
+        rt = mesh_runtime(16, "hamming", "cnb")
+        procs = isinstance(rt.mesh, ProcessZoneMesh)
+        label = "mesh n=16 hamming cnb insert + payload_sync + search"
+
+        def run():
+            st = rt.shard_store(store_h)
+            st = rt.insert(h, st, moved, re_ids.to(torch.int32), 1)
+            st = rt.payload_sync(st, latest, hyperplanes=h)
+            return st, rt.search(h, st, latest[qids[0]],
+                                 cache=rt.refresh_cache(st))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, (ids_c, sc_c, stats_c) = counted(
+            "mesh_procs" if procs else label,
+            ("fused_query", "hamming_words"), run)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = (ids_c, sc_c, stats_c.host(), st.ids, st.timestamps,
+               st.write_ptr, st.payload, st.generation)
+        hit = float((ids_c[:, 0] == qids[0]).float().mean())
+        log(f"[cell] {'processes: ' if procs else ''}{label}: "
+            f"{len(re_ids)} re-announces, {ms:.3f} ms in all; self-hit@1 "
+            f"{hit:.4f}, dropped {int(stats_c)}")
+        if procs:
+            trace = profile_batch(torch, f"mesh_procs {label}", run)
+            procs_check(label, got, ms, trace, sendrecv=True)
+        else:
+            one_proc[label] = (*got, ms)
+
+    chain_cell()
+
+    # -- 9 (processes): the same cells on the process mesh ------------------
+    # NCCL at world size 1 (the card's only size: NCCL refuses two ranks on
+    # one card); every exchange passes the group's collective
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    procs_wall = time.perf_counter()
+    init_process_mesh(dev)
+    log(f"[procs] process group: backend {tdist.get_backend()}, world "
+        f"{tdist.get_world_size()}; mesh {make_zone_mesh(16, device=dev)}")
+    st16p, cache16p = refreshed(16, "hamming", store_h)
+    mesh16(st16p, cache16p)
+    chain_cell()
+    st4p, cache4p = refreshed(4, "dot", store)
+    mesh4(st4p, cache4p)
+    tdist.destroy_process_group()
+    log(f"[procs] the process mesh in {time.perf_counter() - procs_wall:.1f}"
+        f" s; every cell equal to its one-process cell exactly")
+    del cache16, cache4, cache16p, cache4p, st16p, st4p, latest
+    one_proc.clear()
 
     # -- 12. serving: the CLI over the engine backend (serve_closed/open) ---
     def cli_args(**kw):
@@ -1656,8 +1841,8 @@ def main() -> int:
             with uncounted():
                 hold_at_path_shapes(f"{path} epoch {epoch}", batch,
                                     ("fused_query",))
-                rows, wall = profile_batch(torch, f"{path} epoch {epoch}",
-                                           batch)
+                rows, wall, _ = profile_batch(
+                    torch, f"{path} epoch {epoch}", batch)
             fq_ms = sum(r[0] for r in rows if "fq_" in r[2])
             busy = sum(r[0] for r in rows)
             # the primary + replica view the owner stage builds on every
@@ -2067,9 +2252,9 @@ def main() -> int:
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         decode = lm_serve.make_decode_step(gemma)
         decode(g16, states, tok, 512)
-        rows, wall = profile_batch(torch, "lm_gemma2 decode step",
-                                   lambda: decode(g16, states, tok, 513),
-                                   top=12)
+        rows, wall, _ = profile_batch(torch, "lm_gemma2 decode step",
+                                      lambda: decode(g16, states, tok, 513),
+                                      top=12)
         busy = sum(r[0] for r in rows)
         launches = sum(r[1] for r in rows)
         log(f"[lm] lm_gemma2 decode step: {launches} device ops (kernels and "

@@ -53,7 +53,7 @@ from repro_torch import resolve_device
 from repro_torch.core import costmodel, metrics
 from repro_torch.core.hashing import LshParams, make_hyperplanes
 from repro_torch.core.runtime import IndexRuntime, RuntimeConfig, kill_node, \
-    reshard
+    require_one_process, reshard
 from repro_torch.core.store import make_store
 from repro_torch.obs.flight import QueryRecord
 
@@ -191,7 +191,8 @@ def make_churn_runtime(
     exclusion, so the driver drops the query's own id on the host, the
     same convention on every topology.  cap_factor = n_shards guarantees
     zero drops (the worst case routes every probe of a node to one
-    owner)."""
+    owner).  One process only (ROADMAP item 6b)."""
+    require_one_process(mesh, "the churn drivers")
     params = LshParams(d=cfg.dim, k=cfg.k, L=cfg.L, seed=cfg.seed + 1)
     rcfg = RuntimeConfig(
         params=params, n_nodes=n_shards, variant="cnb", m=cfg.m + 1,

@@ -1,18 +1,23 @@
 """Mesh adapter for the IndexRuntime: the step functions over a
-`ZoneMesh` (DESIGN.md Sec. 2, 8).
+`ZoneMesh` or a `ProcessZoneMesh` (DESIGN.md Sec. 2, 8).
 
 The query and maintenance logic lives in `repro_torch.core.runtime` as
-step bodies written over a leading node axis; this module is only the
-mesh side of that layer:
+step bodies written over a leading axis of this process's nodes; this
+module is only the mesh side of that layer:
 
   * the geometry: node j owns the contiguous zone `zone_range(j)` of the
-    global bucket array, so the global store IS the sharded store
-    (`shard_store` only places it on the mesh's device), and the query
-    batch shards over the batch axes in node order;
-  * the step wrappers binding each body to `MeshCollectives`
-    (`search_step_fn` / `make_search_step`, `make_contains_step`, `make_insert_step`,
-    `make_payload_sync`, `make_refresh_cache`, `make_replicate_store`)
-    plus the sum of the per-node accounting (`_psum_stats`);
+    global bucket array.  On one process the global store IS the
+    sharded store (`shard_store` only places it on the mesh's device);
+    on a process mesh each rank keeps its block's zones.  The query
+    batch shards over the batch axes in node order; every rank of a
+    process mesh is handed the whole batch, serves its slice, and
+    returns the whole batch's results, all-gathered, so a caller's code
+    is the same on both meshes;
+  * the step wrappers binding each body to `MeshCollectives` or
+    `BlockCollectives` (`search_step_fn` / `make_search_step`,
+    `make_contains_step`, `make_insert_step`, `make_payload_sync`,
+    `make_refresh_cache`, `make_replicate_store`) plus the sum of the
+    per-node accounting (`_psum_stats`);
   * the wire byte model (`estimate_query_bytes`, `estimate_refresh_bytes`,
     `estimate_reshard_bytes`): the Table-1 analogue in bytes, the same
     closed forms as the reference's.
@@ -41,7 +46,7 @@ import torch
 from repro_torch.core import packed
 from repro_torch.core import runtime as runtime_mod
 from repro_torch.core.runtime import (
-    MeshCollectives, RuntimeConfig, StepStats, _route_cap,
+    RuntimeConfig, StepStats, _route_cap, require_one_process,
 )
 from repro_torch.core.store import BucketStore
 
@@ -53,25 +58,13 @@ def DistConfig(*, n_shards: int, **kw) -> RuntimeConfig:
     return RuntimeConfig(n_nodes=n_shards, **kw)
 
 
-def _collectives(cfg: RuntimeConfig, mesh) -> MeshCollectives:
-    return MeshCollectives(n=cfg.n_nodes, device=mesh.device)
-
-
-def _batch_rows(mesh, x: torch.Tensor) -> torch.Tensor:
-    """[B, ...] -> [data, n, B/(data*n), ...]: the slice of each data row
-    and node, in node order; a batch that does not divide raises."""
-    shards = mesh.data * mesh.n_model
-    if x.shape[0] % shards:
-        raise ValueError(f"batch of {x.shape[0]} does not shard over "
-                         f"{shards} mesh slices: pad it to a multiple")
-    return x.reshape((mesh.data, mesh.n_model, -1) + x.shape[1:])
-
-
 def _node_slices(mesh, x: torch.Tensor) -> torch.Tensor:
-    """[B, ...] -> [n, B/n, ...] for a step that gathers the whole batch
-    on every node (insert, payload sync): the gather over all batch axes
-    gives back the batch in its order."""
-    return _batch_rows(mesh, x).reshape((mesh.n_model, -1) + x.shape[1:])
+    """[B, ...] -> [nodes, B/nodes, ...] for a step that gathers the whole
+    batch on every node (insert, payload sync): this process's share of
+    the slices.  The gather over all batch axes gives back the batch in
+    its order."""
+    sl = mesh.my_slices(x)
+    return sl.reshape((sl.shape[1], -1) + x.shape[1:])
 
 
 # -----------------------------------------------------------------------------
@@ -81,22 +74,19 @@ def _node_slices(mesh, x: torch.Tensor) -> torch.Tensor:
 
 def shard_store(mesh, store: BucketStore) -> BucketStore:
     """Place a host-built store on the mesh: zone j of its bucket axis is
-    node j's shard, so placement is a move to the mesh's device."""
-    def put(x):
-        return None if x is None else x.to(mesh.device)
-
-    return BucketStore(put(store.ids), put(store.timestamps),
-                       put(store.write_ptr), put(store.payload),
-                       put(store.generation))
+    node j's shard, so a process keeps its nodes' zones (one process:
+    the whole store, moved to the mesh's device)."""
+    return mesh.store_zones(store)
 
 
 def make_refresh_cache(cfg: RuntimeConfig, mesh):
     """CNB cache refresh: 1 ppermute per node bit, OFF the query path.
 
     Returns fn(ids, payload) -> (cache_ids [T, nbits, NB, C],
-    cache_payload [T, nbits, NB, C, D|W]): zone j of slice b holds the
-    zone of node j ^ 2^b, the layout of the reference's sharded cache."""
-    cx = _collectives(cfg, mesh)
+    cache_payload [T, nbits, NB, C, D|W]) over this process's zones:
+    zone j of slice b holds the zone of node j ^ 2^b, the layout of the
+    reference's sharded cache."""
+    cx = mesh.collectives(cfg)
     perms = [cfg.topo.neighbor_perm(j) for j in range(cfg.node_bits)]
 
     def refresh(ids, payload):
@@ -113,8 +103,10 @@ def make_replicate_store(cfg: RuntimeConfig, mesh):
 
     Returns fn(ids, payload) -> (rep_ids [T, R-1, NB, C], rep_payload
     [T, R-1, NB, C, D|W]), zone i of slice r-1 holding the zone of node
-    (i - r) % n, as the reference's sharded slices do."""
-    cx = _collectives(cfg, mesh)
+    (i - r) % n, as the reference's sharded slices do.  One process
+    only (ROADMAP item 6b)."""
+    require_one_process(mesh, "make_replicate_store")
+    cx = mesh.collectives(cfg)
 
     def replicate(ids, payload):
         return runtime_mod.replicate_kernel(cfg, cx, ids, payload)
@@ -127,17 +119,17 @@ def make_replicate_store(cfg: RuntimeConfig, mesh):
 # -----------------------------------------------------------------------------
 
 
-def _psum_stats(per_node: list[StepStats]) -> StepStats:
+def _psum_stats(mesh, per_node: list[StepStats]) -> StepStats:
     """Global `StepStats`: sum the additive accounting fields over every
-    node of every data row.  `replica_fanout` is a per-step constant,
-    carried through rather than summed."""
-    def total(name):
-        return torch.cat([getattr(s, name) for s in per_node]).sum(
-            dim=0, dtype=torch.int32)
-
-    fields = {f.name: total(f.name) for f in dataclasses.fields(StepStats)
-              if f.name != "replica_fanout"}
-    return StepStats(replica_fanout=per_node[0].replica_fanout[0], **fields)
+    node of every data row (on a process mesh, this process's nodes,
+    then one all_reduce over every rank).  `replica_fanout` is a
+    per-step constant, carried through rather than summed."""
+    names = [f.name for f in dataclasses.fields(StepStats)
+             if f.name != "replica_fanout"]
+    totals = [torch.cat([getattr(s, name) for s in per_node]).sum(
+        dim=0, dtype=torch.int32) for name in names]
+    return StepStats(replica_fanout=per_node[0].replica_fanout[0],
+                     **dict(zip(names, mesh.sum_stats(totals))))
 
 
 def search_step_fn(cfg: RuntimeConfig):
@@ -153,7 +145,9 @@ def search_step_fn(cfg: RuntimeConfig):
     has_reps = cfg.replication > 1
 
     def on_mesh(mesh):
-        cx = _collectives(cfg, mesh)
+        if has_reps:
+            require_one_process(mesh, "a replicated read")
+        cx = mesh.collectives(cfg)
 
         def step(hyperplanes, ids, payload, *rest):
             rest = list(rest)
@@ -168,10 +162,12 @@ def search_step_fn(cfg: RuntimeConfig):
             outs = [runtime_mod.search_kernel(cfg, cx, cfg.m, hyperplanes,
                                               ids, payload, c_ids, c_payload,
                                               q_row, **kw)
-                    for q_row in _batch_rows(mesh, q)]
-            return (torch.cat([o[0] for o in outs]).reshape(-1, cfg.m),
-                    torch.cat([o[1] for o in outs]).reshape(-1, cfg.m),
-                    _psum_stats([o[2] for o in outs]))
+                    for q_row in mesh.my_slices(q)]
+            return (mesh.whole_batch(torch.cat(
+                        [o[0] for o in outs]).reshape(-1, cfg.m)),
+                    mesh.whole_batch(torch.cat(
+                        [o[1] for o in outs]).reshape(-1, cfg.m)),
+                    _psum_stats(mesh, [o[2] for o in outs]))
 
         return step
 
@@ -188,9 +184,11 @@ def make_contains_step(cfg: RuntimeConfig, mesh):
     fn(hyperplanes, store_ids, [cache_ids,] [rep_ids, live,] q [B, d],
     targets [B]) -> (hits bool [B], stats `StepStats`).  Same planner
     and router as the search step."""
-    cx = _collectives(cfg, mesh)
+    cx = mesh.collectives(cfg)
     has_cache = cfg.variant == "cnb" and cfg.node_bits > 0
     has_reps = cfg.replication > 1
+    if has_reps:
+        require_one_process(mesh, "a replicated read")
 
     def step(hyperplanes, ids, *rest):
         rest = list(rest)
@@ -201,10 +199,11 @@ def make_contains_step(cfg: RuntimeConfig, mesh):
         q, targets = rest
         outs = [runtime_mod.contains_kernel(cfg, cx, hyperplanes, ids, c_ids,
                                             q_row, t_row, **kw)
-                for q_row, t_row in zip(_batch_rows(mesh, q),
-                                        _batch_rows(mesh, targets))]
-        return (torch.cat([o[0] for o in outs]).reshape(-1),
-                _psum_stats([o[1] for o in outs]))
+                for q_row, t_row in zip(mesh.my_slices(q),
+                                        mesh.my_slices(targets))]
+        return (mesh.whole_batch(torch.cat([o[0] for o in outs]).reshape(
+                    -1)),
+                _psum_stats(mesh, [o[1] for o in outs]))
 
     return step
 
@@ -213,7 +212,7 @@ def make_insert_step(cfg: RuntimeConfig, mesh):
     """Distributed insert/refresh: vectors arrive sharded over the batch
     slices; each node takes the ones whose buckets it owns.  Returns the
     updated store."""
-    cx = _collectives(cfg, mesh)
+    cx = mesh.collectives(cfg)
 
     def insert(hyperplanes, store: BucketStore, vec, vid, now):
         return runtime_mod.insert_kernel(
@@ -225,7 +224,7 @@ def make_insert_step(cfg: RuntimeConfig, mesh):
 
 def make_payload_sync(cfg: RuntimeConfig, mesh):
     """Payload re-sync (`runtime.payload_sync_kernel` on the mesh)."""
-    cx = _collectives(cfg, mesh)
+    cx = mesh.collectives(cfg)
 
     def apply(store: BucketStore, vec):
         nodes = _node_slices(mesh, vec)

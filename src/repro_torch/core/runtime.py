@@ -9,12 +9,14 @@ sync) as step functions parameterized by a `CanTopology`:
     façade over it.
   * a mesh (`repro_torch.launch.mesh.make_zone_mesh`): buckets shard over
     the nodes, node j owning the contiguous zone `zone_range(j)` of the
-    global bucket array.  The n nodes live in one process on one device;
-    `MeshCollectives` exchanges tensors between their slices.  Step
-    bodies are written over a leading node axis, so each stage launches
-    its kernel once for all nodes' rows.  Routed steps run the
-    capacitated all_to_all router (or the allgather fallback), the CNB
-    neighbour cache and the NB forwards.
+    global bucket array.  The n nodes live in one process on one device,
+    where `MeshCollectives` exchanges tensors between their slices, or
+    in contiguous blocks of `n_loc` nodes, one block a process, where
+    `BlockCollectives` exchanges them through `torch.distributed`.  Step
+    bodies are written over a leading axis of this process's nodes, so
+    each stage launches its kernel once for all of their rows.  Routed
+    steps run the capacitated all_to_all router (or the allgather
+    fallback), the CNB neighbour cache and the NB forwards.
 
 On a CUDA store, `fused="auto"` takes the fused query / contains kernels
 for the owner stage, as the reference takes its Pallas kernels on a TPU;
@@ -36,6 +38,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch import resolve_device
 from repro_torch.core import packed as packed_mod
@@ -131,6 +134,7 @@ class LocalCollectives:
     structurally cannot be dropped."""
 
     n = 1
+    nodes = range(1)
     routed = False
 
     def axis_index(self):
@@ -173,9 +177,21 @@ class MeshCollectives:
     device: torch.device
     routed = True
 
+    @property
+    def n_loc(self) -> int:
+        """Nodes this process holds: all of them."""
+        return self.n
+
+    @property
+    def nodes(self) -> range:
+        """Global ids of this process's nodes."""
+        return range(self.n)
+
     def axis_index(self) -> torch.Tensor:
         """int64 [n]: each node's own index."""
         return torch.arange(self.n, device=self.device)
+
+    local_index = axis_index  # the store holds every node's zone
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """[n_src, n_dst, ...] -> [n_dst, n_src, ...]: node i's block for
@@ -211,15 +227,145 @@ class MeshCollectives:
         return x.sum(dim=0)
 
 
+@functools.lru_cache(maxsize=None)
+def _block_perm(n: int, n_loc: int, block: int, perm: tuple,
+                device: torch.device):
+    """The plan of one ppermute on block `block` of `n_loc` of n nodes:
+    (local rows to send, grouped by destination block, int64 [s]; send
+    counts per block; local rows the received slices land on, int64 [r];
+    receive counts per block; do all local nodes receive?).  Rows go in
+    ascending destination order within each peer's share, the order the
+    peer expects them in."""
+    blocks = n // n_loc
+    first = block * n_loc
+    send = sorted((d, s) for s, d in perm if s // n_loc == block)
+    recv = sorted((s // n_loc, d) for s, d in perm if d // n_loc == block)
+    send_counts, recv_counts = [0] * blocks, [0] * blocks
+    for d, _ in send:
+        send_counts[d // n_loc] += 1
+    for b, _ in recv:
+        recv_counts[b] += 1
+
+    def idx(rows):
+        return torch.tensor(rows, dtype=torch.int64, device=device)
+
+    return (idx([s - first for _, s in send]), send_counts,
+            idx([d - first for _, d in recv]), recv_counts,
+            len(recv) == n_loc)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockCollectives:
+    """The collectives of one process's block of `n_loc` of the mesh's n
+    CAN nodes, over `torch.distributed`.
+
+    Block b holds the global nodes [b*n_loc, (b+1)*n_loc).  A per-node
+    tensor carries this block's nodes on its leading axis, and the store
+    holds only their zones.  The semantics are those of
+    `MeshCollectives` (the reference's `jax.lax` collectives over
+    `model`), each exchange going through `group`'s collective, the part
+    that stays inside the process included.  `group` is the model axis,
+    this data row's processes (None: the default group); the batch axes
+    are every process, the default group."""
+
+    n: int
+    n_loc: int
+    block: int
+    device: torch.device
+    group: object = None
+    routed = True
+
+    @property
+    def nodes(self) -> range:
+        """Global ids of this process's nodes."""
+        return range(self.block * self.n_loc, (self.block + 1) * self.n_loc)
+
+    def axis_index(self) -> torch.Tensor:
+        """int64 [n_loc]: each local node's global index."""
+        return torch.arange(self.nodes.start, self.nodes.stop,
+                            device=self.device)
+
+    def local_index(self) -> torch.Tensor:
+        """int64 [n_loc]: each local node's place in this process's store
+        slice."""
+        return torch.arange(self.n_loc, device=self.device)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_loc, n, ...] -> [n_loc, n, ...]: what local node i holds for
+        global node j lands, on j's process, in j's row at i's global
+        index (the tiled all_to_all of `MeshCollectives`)."""
+        nl, blocks = self.n_loc, self.n // self.n_loc
+        tail = x.shape[2:]
+        send = x.reshape((nl, blocks, nl) + tail).transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)            # [blocks, src, dst, ...]
+        tdist.all_to_all_single(recv, send, group=self.group)
+        return recv.movedim(2, 0).reshape(x.shape)
+
+    def _gather(self, x: torch.Tensor, group, parts: int) -> torch.Tensor:
+        flat = x.reshape((-1,) + x.shape[2:]).contiguous()
+        out = flat.new_empty((parts * flat.shape[0],) + flat.shape[1:])
+        tdist.all_gather_into_tensor(out, flat, group=group)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_loc, a, ...] -> [n*a, ...]: the node-ordered concat of the
+        data row."""
+        return self._gather(x, self.group, self.n // self.n_loc)
+
+    def all_gather_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_loc, a, ...] -> the concat over every process, in rank
+        order: the batch in its order."""
+        return self._gather(x, None, tdist.get_world_size())
+
+    def ppermute(self, x: torch.Tensor, perm, axis: int = 0) -> torch.Tensor:
+        """Send slice `src` of the node axis to `dst` for each global (src,
+        dst) of `perm`: one all_to_all_single with a split size per peer
+        (0 where no pair crosses).  Nodes that receive nothing get
+        zeros."""
+        send, s_counts, dst, r_counts, full = _block_perm(
+            self.n, self.n_loc, self.block, tuple(map(tuple, perm)),
+            x.device)
+        xs = x.movedim(axis, 0)
+        buf = xs.index_select(0, send)
+        got = buf.new_empty((dst.numel(),) + xs.shape[1:])
+        tdist.all_to_all_single(got, buf, r_counts, s_counts,
+                                group=self.group)
+        out = (torch.empty_like if full else torch.zeros_like)(
+            xs, memory_format=torch.contiguous_format)
+        out.index_copy_(0, dst, got)
+        return out.movedim(0, axis)
+
+    def alive(self, live: torch.Tensor) -> torch.Tensor:
+        """bool [n_loc]: each local node's own bit of the liveness mask."""
+        return (live > 0)[self.nodes.start:self.nodes.stop]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the node axis and the data row's processes."""
+        total = x.sum(dim=0)
+        tdist.all_reduce(total, group=self.group)
+        return total
+
+
+def require_one_process(mesh, what: str) -> None:
+    """Refuse `what` on a mesh of several processes: it is ROADMAP item
+    6b, and computing it on this process's block alone would quietly
+    answer for a part of the nodes."""
+    if mesh is not None and mesh.world > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {mesh.world} processes is ROADMAP item "
+            "6b; run it on a one-process mesh")
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """Merge the node axis into the row axis: [n, R, ...] -> [n*R, ...]."""
     return x.reshape((-1,) + x.shape[2:])
 
 
 def _zones(cx, store_ids: torch.Tensor, rows_per_node: int) -> torch.Tensor:
-    """int64 [n*R]: first global bucket of the zone of each row's node."""
-    nb_loc = store_ids.shape[1] // cx.n
-    return (cx.axis_index() * nb_loc).repeat_interleave(rows_per_node)
+    """int64 [n_loc*R]: first bucket of the zone of each row's node in
+    this process's store slice."""
+    nb_loc = store_ids.shape[1] // cx.n_loc
+    return (cx.local_index() * nb_loc).repeat_interleave(rows_per_node)
 
 
 # -----------------------------------------------------------------------------
@@ -250,7 +396,7 @@ def _global_probes(cfg, nb: int, local_idx, mask, zone):
     and masked local near buckets."""
     probes, pvalid = plan_mod.shard_local_probes(
         cfg.topo, local_idx, mask, include_near=_local_include_near(cfg))
-    probes = (probes % (nb // cfg.n_nodes)).long()  # fold OOB codes
+    probes = (probes % cfg.topo.buckets_per_node).long()  # fold OOB codes
     if zone is not None:
         probes = probes + zone[:, None]
     return probes, pvalid
@@ -746,25 +892,27 @@ def search_kernel(
     if reps_on:
         cols.append(rep_col)
     meta = torch.stack(cols, dim=-1)
-    nodes = cx.axis_index()[:, None]
+    n_loc = dest.shape[0]
+    nodes = cx.local_index()[:, None]
     # hamming routes the packed word rows; fill 0 is safe either way, as
     # fill rows carry meta -1 and are masked by rvalid below
     send_q = routing_mod.build_send_buffer(route, n, cap,
                                            qs[nodes, flat["qidx"]], 0)
     send_meta = routing_mod.build_send_buffer(route, n, cap, meta, -1)
 
-    recv_q = cx.all_to_all(send_q)                         # [n, n, cap, DW]
+    recv_q = cx.all_to_all(send_q)                     # [n_loc, n, cap, DW]
     recv_meta = cx.all_to_all(send_meta)
-    rq = recv_q.reshape(n, n * cap, qs.shape[-1])
-    rtable = recv_meta[..., 1].reshape(n, -1)
+    rq = recv_q.reshape(n_loc, n * cap, qs.shape[-1])
+    rtable = recv_meta[..., 1].reshape(n_loc, -1)
     rvalid = rtable >= 0
     rtable = rtable.clamp(min=0)
-    rlocal = recv_meta[..., 2].reshape(n, -1).clamp(min=0)
-    rmask = recv_meta[..., 3].reshape(n, -1).clamp(min=0)
+    rlocal = recv_meta[..., 2].reshape(n_loc, -1).clamp(min=0)
+    rmask = recv_meta[..., 3].reshape(n_loc, -1).clamp(min=0)
     reps = rrep = None
     if reps_on:
         reps = (rep_ids, rep_payload)
-        rrep = recv_meta[..., 4].reshape(n, -1).clamp(0, cfg.replication - 1)
+        rrep = recv_meta[..., 4].reshape(n_loc, -1).clamp(
+            0, cfg.replication - 1)
         # a dead node's own rows are fill: liveness is enforced where the
         # data lives, so a survivor cannot resurrect a killed zone
         rvalid &= cx.alive(live)[:, None]
@@ -773,19 +921,19 @@ def search_kernel(
     # masked by rvalid below
     ids_r, sc_r = _node_stages(cfg, cx, fused, store_ids, store_payload,
                                cache_ids, cache_payload, rq, rtable, rlocal,
-                               rmask, m, reps, rrep)       # [n, n*cap, m]
+                               rmask, m, reps, rrep)   # [n_loc, n*cap, m]
     ids_r = torch.where(rvalid[..., None], ids_r, -1)
     sc_r = torch.where(rvalid[..., None], sc_r, NEG_INF)
 
     # ---- return results to origin -------------------------------------------
-    back_i = cx.all_to_all(ids_r.reshape(n, n, cap, m))
-    back_s = cx.all_to_all(sc_r.reshape(n, n, cap, m))
-    gather_i = routing_mod.return_to_origin(route, back_i, -1)  # [n, F*fan, m]
+    back_i = cx.all_to_all(ids_r.reshape(n_loc, n, cap, m))
+    back_s = cx.all_to_all(sc_r.reshape(n_loc, n, cap, m))
+    gather_i = routing_mod.return_to_origin(route, back_i, -1)  # [n_loc, F', m]
     gather_s = routing_mod.return_to_origin(route, back_s, NEG_INF)
 
     def per_query(x):  # a query's L*m rows from every replica copy
-        x = x.reshape(n, fanout, b_loc, L * m)
-        return x.transpose(1, 2).reshape(n, b_loc, fanout * L * m)
+        x = x.reshape(n_loc, fanout, b_loc, L * m)
+        return x.transpose(1, 2).reshape(n_loc, b_loc, fanout * L * m)
 
     ids, sc = dedupe_topk(per_query(gather_i), per_query(gather_s), m)
     return ids, sc, _routed_stats(route, dest, flat["qidx"], b_loc, n,
@@ -850,24 +998,24 @@ def _search_allgather(cfg, cx, fused, store_ids, store_payload, cache_ids,
     """Dense fallback: every node receives every query, scores the
     (query, table) rows it owns, and the results return via all_to_all.
     `qs` [n, b_loc, d|W] is the scoring-side query row."""
-    L, n = cfg.params.L, cx.n
+    L, n, nl = cfg.params.L, cx.n, cx.n_loc
     b_loc = qs.shape[1]
     g, rtable, b_all = _gather_flat_meta(cx, flat, L,
                                          ("owner", "local", "mask"))
     rq = cx.all_gather(qs).repeat_interleave(L, dim=0)     # [b_all*L, d|W]
-    mine = g["owner"][None, :] == cx.axis_index()[:, None]  # [n, b_all*L]
+    mine = g["owner"][None, :] == cx.axis_index()[:, None]  # [nl, b_all*L]
     ids_r, sc_r = _node_stages(
         cfg, cx, fused, store_ids, store_payload, cache_ids, cache_payload,
-        _per_node(n, rq), _per_node(n, rtable), _per_node(n, g["local"]),
-        _per_node(n, g["mask"]), m)                        # [n, b_all*L, m]
+        _per_node(nl, rq), _per_node(nl, rtable), _per_node(nl, g["local"]),
+        _per_node(nl, g["mask"]), m)                       # [nl, b_all*L, m]
     ids_r = torch.where(mine[..., None], ids_r, -1)
     sc_r = torch.where(mine[..., None], sc_r, NEG_INF)
 
     # each origin needs the rows of its own queries from ALL nodes
     def to_origin(x):
-        got = cx.all_to_all(x.reshape(n, n, b_loc * L * m))
-        return got.reshape(n, n, b_loc, L * m).transpose(1, 2).reshape(
-            n, b_loc, n * L * m)
+        got = cx.all_to_all(x.reshape(nl, n, b_loc * L * m))
+        return got.reshape(nl, n, b_loc, L * m).transpose(1, 2).reshape(
+            nl, b_loc, n * L * m)
 
     return dedupe_topk(to_origin(ids_r), to_origin(sc_r), m)
 
@@ -972,15 +1120,17 @@ def contains_kernel(cfg: RuntimeConfig, cx, hyperplanes, store_ids,
         g, rtable, b_all = _gather_flat_meta(
             cx, dict(flat, target=flat_tgt), L,
             ("owner", "local", "mask", "target"))
+        nl = cx.n_loc
         hit = _contains_hits(
-            cfg, cx, fused, store_ids, cache_ids, _per_node(n, rtable),
-            _per_node(n, g["local"]), _per_node(n, g["mask"]),
-            _per_node(n, g["target"]))                     # [n, b_all*L]
+            cfg, cx, fused, store_ids, cache_ids, _per_node(nl, rtable),
+            _per_node(nl, g["local"]), _per_node(nl, g["mask"]),
+            _per_node(nl, g["target"]))                    # [nl, b_all*L]
         hit &= g["owner"][None, :] == cx.axis_index()[:, None]
-        # OR across nodes == psum of disjoint indicators, then own slice
-        hit_all = cx.psum(hit.reshape(n, b_all, L).any(dim=-1).to(
+        # OR across nodes == psum of disjoint indicators, then own slices
+        hit_all = cx.psum(hit.reshape(nl, b_all, L).any(dim=-1).to(
             torch.int32))
-        return (hit_all.reshape(n, b_loc) > 0,
+        own = hit_all.reshape(n, b_loc)[cx.nodes.start:cx.nodes.stop]
+        return (own > 0,
                 StepStats.local(n, probes, b_loc * n, device=q.device))
 
     dest = flat["owner"]
@@ -998,10 +1148,11 @@ def contains_kernel(cfg: RuntimeConfig, cx, hyperplanes, store_ids,
         cols.append(rep_col)
     meta = torch.stack(cols, dim=-1)
     send_meta = routing_mod.build_send_buffer(route, n, cap, meta, -1)
-    recv_meta = cx.all_to_all(send_meta)                   # [n, n, cap, 5|6]
+    recv_meta = cx.all_to_all(send_meta)               # [n_loc, n, cap, 5|6]
+    n_loc = recv_meta.shape[0]
 
     def col(c):
-        return recv_meta[..., c].reshape(n, -1)
+        return recv_meta[..., c].reshape(n_loc, -1)
 
     rep_kw = {}
     if reps_on:
@@ -1015,9 +1166,9 @@ def contains_kernel(cfg: RuntimeConfig, cx, hyperplanes, store_ids,
     hit &= col(1) >= 0
     if reps_on:
         hit &= cx.alive(live)[:, None]
-    back = cx.all_to_all(hit.reshape(n, n, cap).to(torch.int32))
-    got = routing_mod.return_to_origin(route, back, 0)     # [n, F*fanout]
-    return (got.reshape(n, fanout, b_loc, L).any(dim=-1).any(dim=1),
+    back = cx.all_to_all(hit.reshape(n_loc, n, cap).to(torch.int32))
+    got = routing_mod.return_to_origin(route, back, 0)     # [n_loc, F*fanout]
+    return (got.reshape(n_loc, fanout, b_loc, L).any(dim=-1).any(dim=1),
             _routed_stats(route, dest, flat["qidx"], b_loc, n, probes,
                           fanout))
 
@@ -1061,8 +1212,9 @@ def insert_kernel(cfg: RuntimeConfig, cx, hyperplanes, st: BucketStore, vec,
         else:
             payload = vec_all
     new = st.clone()
-    for node in range(cx.n):
-        zone = _zone_view(new, *cfg.topo.zone_range(node))
+    w = cfg.topo.buckets_per_node
+    for i, node in enumerate(cx.nodes):  # each local zone at its offset
+        zone = _zone_view(new, i * w, (i + 1) * w)
         mine = plan.owner == node                            # [nv, L]
         for l in range(cfg.params.L):
             sel = mine[:, l]
@@ -1086,11 +1238,11 @@ def payload_sync_kernel(cx, store_ids, store_payload, vec):
 
 
 def permuted_zones(cx, x: torch.Tensor, perms) -> torch.Tensor:
-    """[T, len(perms), NB, ...]: slice i holds the global array `x`
-    [T, NB, ...] after each node sent its zone along pairing perms[i]
-    (one ppermute over the zone axis each)."""
+    """[T, len(perms), NB, ...]: slice i holds the bucket array `x`
+    [T, NB, ...] of this process's zones after each node sent its zone
+    along pairing perms[i] (one ppermute over the zone axis each)."""
     t, nb = x.shape[:2]
-    zones = x.reshape((t, cx.n, nb // cx.n) + x.shape[2:])
+    zones = x.reshape((t, cx.n_loc, nb // cx.n_loc) + x.shape[2:])
     out = x.new_empty((t, len(perms)) + x.shape[1:])
     for i, perm in enumerate(perms):
         out[:, i] = cx.ppermute(zones, perm, axis=1).reshape(x.shape)
@@ -1129,8 +1281,8 @@ class IndexRuntime:
       engine's execution context, on ``device`` (the CUDA card unless
       ``device="cpu"``).
     * ``IndexRuntime(cfg, mesh)``: the steps of `repro_torch.core.
-      distributed` over a `ZoneMesh` of ``cfg.n_nodes`` nodes, on the
-      mesh's device.
+      distributed` over a `ZoneMesh` of ``cfg.n_nodes`` nodes, or over
+      this process's block of a `ProcessZoneMesh`, on the mesh's device.
 
     Inputs given as numpy arrays or tensors move to the runtime's device.
     """
@@ -1425,7 +1577,9 @@ def kill_node(rt: IndexRuntime, store: BucketStore, replicas, node: int):
     them.  Bumps `generation`, so caches drop results that may hold the
     dead node's rows.  Functional: returns a new (store, replicas) and
     leaves the inputs as they were.  Pair it with a 0 in the `live` mask
-    until the next re-announce repopulates the zone."""
+    until the next re-announce repopulates the zone.  One process only
+    (ROADMAP item 6b)."""
+    require_one_process(getattr(rt, "mesh", None), "kill_node")
     s, e = rt.topology.zone_range(node)
     new_store = BucketStore(
         ids=_blanked(store.ids, 1, s, e, store_mod.EMPTY),
@@ -1498,10 +1652,13 @@ def reshard(
     default unchanged) on `mesh` (None: the 1-node runtime on this
     runtime's device).  CNB caches are not migrated: rebuild them with
     `new_rt.refresh_cache(new_store)`.  Returns (new_runtime,
-    migrated_store, ReshardEvent); the store's generation is bumped."""
+    migrated_store, ReshardEvent); the store's generation is bumped.
+    One process only (ROADMAP item 6b)."""
     from repro_torch.core import costmodel
     from repro_torch.core.can import moved_buckets
 
+    for m in (rt.mesh, mesh, None if runtime is None else runtime.mesh):
+        require_one_process(m, "reshard")
     if runtime is not None:
         if mesh is not None or cap_factor is not None:
             raise ValueError(

@@ -1,41 +1,139 @@
-"""The port's zone mesh: n CAN nodes held in one process on one device.
+"""Building the port's zone meshes (`repro_torch.core.mesh`): n CAN
+nodes in one process (`ZoneMesh`), or in blocks over the processes of a
+`torch.distributed` world (`ProcessZoneMesh`), with the counterparts of
+the reference's mesh helpers (`make_host_mesh`, `require_host_devices`,
+`batch_axes`, `make_production_mesh`).
 
-The JAX package runs its n-node mesh as n devices under `shard_map`.
-The port holds the n nodes on one device instead: each node keeps its
-own zone of the global bucket array (`CanTopology.zone_range`), and each
-collective is a tensor exchange on the device between the nodes' slices
-(`repro_torch.core.runtime.MeshCollectives`).  A data axis > 1 holds
-`data` independent rows of n nodes over one store, each serving its own
-slice of the query batch, as the reference's data-parallel mesh does.
+`make_zone_mesh` builds the first when no process group is initialised
+and the second when one is.  The reference's `repro/compat.py` has no
+port: it only shims `make_mesh` and `shard_map` across JAX versions, and
+the process groups take its place.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.core.mesh import ProcessZoneMesh, ZoneMesh  # noqa: F401
+
+# (world, data) -> (the default group they were made under, each data
+# row's group): every mesh of one layout shares its row groups
+_ROW_GROUPS: dict = {}
 
 
-@dataclasses.dataclass(frozen=True)
-class ZoneMesh:
-    """`data` rows of `n_model` CAN nodes on one device."""
-
-    n_model: int
-    data: int
-    device: torch.device
-    batch_axes: tuple = ("data", "model")
-
-    @property
-    def shape(self) -> dict:
-        return {"data": self.data, "model": self.n_model}
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_zone_mesh(n_model: int, data: int = 1, *, device=None) -> ZoneMesh:
+def _rank_device(device=None) -> torch.device:
+    """This process's device: `cuda:<LOCAL_RANK>` unless the caller asks
+    for the CPU (`resolve_device` raises where there is no card)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return dev
+
+
+def _backend_of(dev: torch.device) -> str:
+    return "nccl" if dev.type == "cuda" else "gloo"
+
+
+def init_process_mesh(device=None, *, init_method: str = "env://",
+                      rank: int = -1, world_size: int = -1) -> torch.device:
+    """Initialise the default process group for a mesh on `device` (the
+    card `cuda:<LOCAL_RANK>` unless `device="cpu"`): NCCL for a card,
+    gloo for the CPU.  With the default `env://`, torchrun's variables
+    give the rank and world.  Returns this process's device."""
+    dev = _rank_device(device)
+    kw = {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group(_backend_of(dev), init_method=init_method,
+                            rank=rank, world_size=world_size, **kw)
+    return dev
+
+
+def require_host_devices(n: int) -> None:
+    """Fail fast, with the recipe, when the world holds fewer than n
+    processes (the port's counterpart of the reference's `XLA_FLAGS`
+    recipe: the world is fixed when the processes start)."""
+    have = _world()
+    if have < n:
+        raise RuntimeError(
+            f"need {n} processes, have {have}: launch with "
+            f"`torchrun --nproc-per-node {n} <script>` (one process per "
+            "card, or per CPU worker with --device cpu)")
+
+
+def make_zone_mesh(n_model: int, data: int = 1, *, device=None, pod: int = 1):
     """A mesh of `data` x `n_model` nodes on `device` (the CUDA card
-    unless `device="cpu"`)."""
+    unless `device="cpu"`).
+
+    Without an initialised process group: the one-process `ZoneMesh`.
+    With one: this rank's `ProcessZoneMesh` over the whole world, which
+    must split into `data` rows of blocks that divide `n_model`; the
+    device is `cuda:<LOCAL_RANK>`, and the group's backend must be the
+    device's (NCCL for a card, gloo for the CPU)."""
     if n_model < 1 or data < 1:
         raise ValueError(f"mesh needs n_model, data >= 1, got {n_model}, "
                          f"{data}")
-    return ZoneMesh(int(n_model), int(data), resolve_device(device))
+    if not dist.is_initialized():
+        return ZoneMesh(int(n_model), int(data), resolve_device(device))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % data:
+        raise ValueError(f"a world of {world} processes does not split into "
+                         f"{data} data rows")
+    blocks = world // data
+    if n_model % blocks:
+        raise ValueError(f"n_model={n_model} does not split into {blocks} "
+                         "blocks of nodes, one a process")
+    dev = _rank_device(device)
+    backend = dist.get_backend()
+    if backend != _backend_of(dev):
+        raise ValueError(f"a mesh on {dev} runs over {_backend_of(dev)}, "
+                         f"but the process group's backend is {backend}")
+    group = _row_groups(world, data)[rank // blocks] if data > 1 else None
+    return ProcessZoneMesh(int(n_model), int(data), dev, rank, world, group,
+                           int(pod))
+
+
+def _row_groups(world: int, data: int) -> list:
+    """The model-axis group of each of `data` rows of a world, made once
+    per default process group: every rank makes every row's group, in
+    one order, on its first mesh of that layout."""
+    made = _ROW_GROUPS.get((world, data))
+    if made is None or made[0] is not dist.group.WORLD:
+        blocks = world // data
+        made = (dist.group.WORLD,
+                [dist.new_group(list(range(r * blocks, (r + 1) * blocks)))
+                 for r in range(data)])
+        _ROW_GROUPS[(world, data)] = made
+    return made[1]
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,
+                   device=None):
+    """A mesh of `pod` x `data` x `model` processes, one node each (tests
+    and examples); the world must hold exactly that many."""
+    pods = pod or 1
+    n = pods * data * model
+    require_host_devices(n)
+    if _world() != n:
+        raise RuntimeError(f"a host mesh of {n} processes needs a world of "
+                           f"{n}, not {_world()}")
+    return make_zone_mesh(model, pods * data, device=device, pod=pods)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh: 16 x 16 (data, model) ranks, or 2 x 16 x 16
+    (pod, data, model); raises without exactly that many processes."""
+    return make_host_mesh(16, 16, 2 if multi_pod else None, device=device)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)

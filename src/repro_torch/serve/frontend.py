@@ -49,7 +49,7 @@ from repro_torch.core import costmodel
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import LshEngine
-from repro_torch.core.runtime import IndexRuntime
+from repro_torch.core.runtime import IndexRuntime, require_one_process
 from repro_torch.obs.flight import QueryRecord
 from repro_torch.obs.trace import span_or_null
 from repro_torch.serve.qcache import QueryCache
@@ -208,6 +208,8 @@ class RuntimeBackend:
         else:
             raise TypeError(f"expected LshEngine or IndexRuntime, got "
                             f"{type(source).__name__}")
+        require_one_process(runtime.mesh, "the serve frontend's mesh "
+                            "backend")
         if runtime.is_distributed and corpus is not None:
             raise ValueError("corpus scoring is 1-node only (mesh shards "
                              "embed payloads in their bucket slots)")

@@ -2,9 +2,10 @@
 the paper's sparse workload on the card against the CPU, and the serving
 layer's use of the card: the pipelined dispatch's CUDA events, a stage
 with no host sync, the churn writer's stream handoff, a batch in
-flight across an update; and the LM serving path: the SMOKE models on
+flight across an update; the LM serving path: the SMOKE models on
 the card against the CPU, a decode loop with no host sync, and the
-index kernels at gemma2-2b's width (D = 2304).
+index kernels at gemma2-2b's width (D = 2304); and the process mesh
+over NCCL at the one card's world size of 1.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
 where `torch.cuda.is_available()` is false.  On the card:
@@ -762,3 +763,89 @@ def test_fused_kernels_at_model_width(dev):
                   for e in engines]
     assert ops.LAUNCHES["bucket_topk"] >= 1
     topk_swaps(r_p.scores, r_p.ids, r_k.scores, r_k.ids, tol=1e-5)
+
+
+# -- the process mesh over NCCL, at the one card's world of 1 -----------------
+
+
+@pytest.fixture
+def nccl_world(dev):
+    """A one-rank NCCL process group, destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from torch_dist_worker import free_port
+
+    mesh_mod.init_process_mesh(dev, init_method=f"tcp://127.0.0.1:"
+                               f"{free_port()}", rank=0, world_size=1)
+    try:
+        yield mesh_mod
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_block_collectives_over_nccl_equal_mesh_collectives(dev, nccl_world,
+                                                            n):
+    """Every BlockCollectives method through NCCL at world 1 (the whole
+    exchange passes the group's collective) equals MeshCollectives."""
+    from repro_torch.core.runtime import BlockCollectives, MeshCollectives
+    from torch_dist_worker import collective_inputs, perms_of
+
+    mesh = nccl_world.make_zone_mesh(n, device=dev)
+    assert mesh.world == 1 and mesh.n_loc == n
+    bc = BlockCollectives(n=n, n_loc=n, block=0, device=mesh.device)
+    mc = MeshCollectives(n=n, device=mesh.device)
+    x = {k: v.to(mesh.device) for k, v in collective_inputs(n, n).items()}
+    assert torch.equal(bc.axis_index(), mc.axis_index())
+    assert torch.equal(bc.local_index(), mc.local_index())
+    for key in ("a2a", "a2a_f"):
+        assert torch.equal(bc.all_to_all(x[key]), mc.all_to_all(x[key]))
+    assert torch.equal(bc.all_gather(x["gather"]), mc.all_gather(x["gather"]))
+    assert torch.equal(bc.all_gather_batch(x["gather"]),
+                       mc.all_gather_batch(x["gather"]))
+    assert torch.equal(bc.psum(x["psum"]), mc.psum(x["psum"]))
+    assert torch.equal(bc.alive(x["live"]), mc.alive(x["live"]))
+    perms = perms_of(n) if n > 1 else {"self": [(0, 0)], "none": []}
+    for perm in perms.values():
+        for key, axis in (("perm", 0), ("perm_ax1", 1), ("perm_bool", 0)):
+            assert torch.equal(bc.ppermute(x[key], perm, axis),
+                               mc.ppermute(x[key], perm, axis))
+
+
+def test_process_mesh_hamming_cnb_search_on_card(dev, nccl_world):
+    """A 16-node hamming cnb search and contains on the NCCL process mesh
+    equal the one-process mesh's exactly, fused kernels and all."""
+    from repro_torch.core import packed
+    from repro_torch.core.runtime import IndexRuntime, RuntimeConfig
+
+    n_users, d, k, L, c, nq = 20000, 64, 10, 3, 128, 512
+    g = torch.Generator().manual_seed(16)
+    x = torch.nn.functional.normalize(torch.randn((n_users, d), generator=g),
+                                      dim=-1).to(dev)
+    params = hashing.LshParams(d=d, k=k, L=L, seed=16)
+    h = hashing.make_hyperplanes(params, device=dev)
+    store = packed.pack_store_payload(build_store_host(
+        hashing.sketch_codes(x, h), params.num_buckets, c, payload=x,
+        device=dev), h)
+    cfg = RuntimeConfig(params=params, n_nodes=16, m=10, variant="cnb",
+                        score="hamming", cap_factor=16.0, use_kernels=True)
+    outs = []
+    for mesh in (nccl_world.ZoneMesh(16, 1, dev),
+                 nccl_world.make_zone_mesh(16, device=dev)):
+        rt = IndexRuntime(cfg, mesh=mesh)
+        st = rt.shard_store(store)
+        cache = rt.refresh_cache(st)
+        ops.reset_launches()
+        ids, sc, stats = rt.search(h, st, x[:nq], cache=cache)
+        hits, hstats = rt.contains(h, st, x[:nq], torch.arange(nq),
+                                   cache=cache)
+        assert ops.LAUNCHES["fused_query"] >= 1
+        assert ops.LAUNCHES["fused_contains"] >= 1
+        outs.append((ids, sc, stats.host(), hits, hstats.host()))
+    (i1, s1, st1, h1, hs1), (i2, s2, st2, h2, hs2) = outs
+    assert isinstance(nccl_world.make_zone_mesh(16, device=dev),
+                      nccl_world.ProcessZoneMesh)
+    assert torch.equal(i1, i2) and torch.equal(s1, s2)
+    assert torch.equal(h1, h2) and st1 == st2 and hs1 == hs2
+    assert st1["dropped_probes"] == 0

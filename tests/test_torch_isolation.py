@@ -58,3 +58,35 @@ def test_port_imports_without_jax_or_the_jax_package():
         "repro_torch.serve.frontend", "repro_torch.serve.lifecycle",
         "repro_torch.serve.loadgen", "repro_torch.serve.qcache",
         "repro_torch.serve.telemetry", "repro_torch.serve.writer"])
+
+
+EXAMPLE_PROBE = textwrap.dedent("""
+    import importlib, importlib.util, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    for name in ("repro_torch.core.mesh", "repro_torch.core.runtime",
+                 "repro_torch.core.distributed", "repro_torch.core.churn",
+                 "repro_torch.serve.frontend"):
+        importlib.import_module(name)
+    launch = sorted(n for n in sys.modules
+                    if n.startswith("repro_torch.launch"))
+    importlib.import_module("repro_torch.launch.mesh")
+    spec = importlib.util.spec_from_file_location("example", EXAMPLE)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    leaked = sorted(n for n in sys.modules
+                    if n == "repro" or n.startswith("repro."))
+    print(leaked, launch)
+""")
+
+
+def test_process_mesh_and_its_example_import_without_jax():
+    """The process mesh's modules and `examples/torch_distributed_search.
+    py` load with jax unimportable and pull in nothing of `repro`; the
+    core layer's mesh modules load nothing of the launch layer."""
+    example = os.path.join(os.path.dirname(SRC), "examples",
+                           "torch_distributed_search.py")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"EXAMPLE = {example!r}\n" + EXAMPLE_PROBE],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] []"
