@@ -99,6 +99,25 @@ failure:
      alone); fused_query (and fused_contains in the contains cell) is
      held against plain on inputs recorded from one read-epoch batch of
      each cell, outside the launch counts;
+ 11b. the P2P dynamics and serving on the process mesh, after the
+     serve_lifecycle cells of phase 12 (whose `run_serve_failure` it
+     compares with): NCCL at world size 1, as in phase 9, so that every
+     mesh the drivers build through `make_zone_mesh` is this rank's
+     `ProcessZoneMesh`.  `run_failure_churn` (4 nodes, R = 2, node 1
+     killed at epoch 3) in first and quorum reads, the replicated
+     contains on its killed mesh in both modes, `run_node_churn` over
+     1 -> 2 -> 4 -> 2 -> 1, and `run_serve_failure` through
+     `RuntimeBackend` on the process mesh; each equal to its
+     one-process cell array by array (recalls, staleness, byte charges,
+     drops, flight records, killed-zone hits; for serving the served ids
+     and recalls), with ms per announce and per read epoch beside the
+     one-process cell's, and a profile of one read batch (NCCL's
+     annotations) and one replicate round (`ncclDevKernel_SendRecv`).
+     Their launches add into one path, `p2p_procs`, which must launch
+     fused_query, fused_contains, and bucket_topk or hamming_words,
+     each held against plain on inputs recorded from one read-epoch
+     batch (bucket_topk: one serving batch); the process group is
+     destroyed at the end of the phase;
  12. serving (`repro_torch.serve`), every cell's launches on one path
      `serve`, each cell with its wall time and peak device memory:
      serve_mesh (in phase 9, on its 16-node hamming cnb mesh: 1024
@@ -289,6 +308,57 @@ def profile_batch(torch, path: str, fn, top: int = 10):
         log(f"[profile]   annotation, not device time: {ms:9.3f} ms  "
             f"x{count:<5d} {key[:70]}")
     return rows, wall, spans
+
+
+def flight_rows(obs) -> list:
+    """The flight records of a run, their clock fields left out."""
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if k not in ("t_us", "latency_us", "stage_us")}
+            for r in obs.flight.records()]
+
+
+def same_result(what: str, got: dict, want: dict) -> None:
+    """A driver's result equals another's key by key and array by array
+    (dtypes too); host times and the serving telemetry's clock-based
+    numbers are left out."""
+    timed = ("epoch_ms", "reference_epoch_ms", "stats", "p50_us", "p99_us",
+             "p50_queue_us", "p99_queue_us", "qps")
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(set(got) ^ set(want))}")
+    for key, val in want.items():
+        if key in timed:
+            continue
+        mine = got[key]
+        if key == "summary":
+            mine, val = ({k: v for k, v in d.items() if k not in timed}
+                         for d in (mine, val))
+        if isinstance(val, np.ndarray):
+            same = (isinstance(mine, np.ndarray) and mine.dtype == val.dtype
+                    and np.array_equal(mine, val))
+        else:
+            same = mine == val
+        if not same:
+            raise AssertionError(f"{what}: {key} differs from the "
+                                 f"one-process run: {mine} vs {val}")
+
+
+@contextlib.contextmanager
+def served_ids():
+    """The ids of every `RetrievalFrontend.search` inside the block."""
+    from repro_torch.serve import RetrievalFrontend
+
+    got, real = [], RetrievalFrontend.search
+
+    def spy(self, *a, **kw):
+        res = real(self, *a, **kw)
+        got.append(res[0])
+        return res
+
+    RetrievalFrontend.search = spy
+    try:
+        yield got
+    finally:
+        RetrievalFrontend.search = real
 
 
 def compare_topk(ki, ks, pi, ps, what: str,
@@ -1927,6 +1997,7 @@ def main() -> int:
                 qidx=torch.from_numpy(st.qidx).to(dev))
         return keep
 
+    fails_one, flights_one = {}, {}
     for mode in ("first", "quorum"):
         obs = Observability()
         hooks = {KILL_EPOCH - 1: keep_ids(mode),
@@ -1943,6 +2014,7 @@ def main() -> int:
         report(f"failure_{mode}", fail)
         smoke_gates(fail, obs.flight, L, N, D, 2, NB // 4, C, REFRESH,
                     EPOCHS, 1)
+        fails_one[mode], flights_one[mode] = fail, flight_rows(obs)
         ref_ms = fail["reference_epoch_ms"]
         log(f"[p2p] failure_{mode}: reference recalls "
             f"{np.round(fail['reference_recalls'], 4).tolist()}; degraded "
@@ -2005,6 +2077,8 @@ def main() -> int:
         hold_at_path_shapes(f"contains_replicated {mode}",
                             lambda: contains_at(mode, KILL_EPOCH),
                             ("fused_contains",))
+    creps_one = {mode: (hits, cstats.host(), ms)
+                 for mode, (hits, cstats, ms) in creps.items()}
     del kept, creps
     log(f"[p2p] phase 11 in {time.perf_counter() - p2p_wall:.1f} s; peak "
         f"device bytes {torch.cuda.max_memory_allocated()}")
@@ -2076,10 +2150,11 @@ def main() -> int:
                                   read_mode="first", kill_epoch=KILL_EPOCH,
                                   kill_node=VICTIM)
         t0 = time.perf_counter()
-        with spied(keep_state=False) as seen_f:
+        with spied(keep_state=False) as seen_f, served_ids() as f_ids:
             f_out = counted("serve", ("fused_query", "bucket_topk"),
                             lambda: run_serve_failure(fcfg, device=dev))
         wall = time.perf_counter() - t0
+        f_wall = wall
         g = f_out["generations"]
         # tests/test_failure.py's SERVE_FAILURE assertions
         ok = (f_out["repeat_mismatches"] == 0
@@ -2120,6 +2195,157 @@ def main() -> int:
                            "hamming_words") if by_path["serve"][n] == 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched: {missing}")
+
+    # -- 11b. the P2P dynamics and serving on the process mesh --------------
+    # NCCL at world size 1, as in phase 9 (NCCL refuses two ranks on one
+    # card): every mesh the drivers build through make_zone_mesh is then
+    # this rank's ProcessZoneMesh, every exchange the group's collective.
+    # Each cell equals its one-process cell of phase 11 (or of
+    # serve_lifecycle) exactly; the launches add into one path, p2p_procs
+    p2p_procs_wall = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    init_process_mesh(dev)
+    log(f"[p2p_procs] process group: backend {tdist.get_backend()}, world "
+        f"{tdist.get_world_size()}; mesh {make_zone_mesh(4, device=dev)}")
+
+    def epoch_ms_line(path, got, want):
+        """ms per announce and per read epoch beside the one-process
+        cell's."""
+        def split(ep):
+            ann = np.arange(len(ep)) % REFRESH == 0
+            return ep[ann].mean(), ep[~ann].mean()
+
+        (ga, gr), (wa, wr) = split(got["epoch_ms"]), split(want["epoch_ms"])
+        log(f"[p2p_procs] {path}: equal to the one-process run array by "
+            f"array; ms per announce epoch {ga:.1f} (one process {wa:.1f}), "
+            f"per read epoch {gr:.1f} (one process {wr:.1f})")
+
+    def nccl_profile(label, fn, sendrecv, tries=3):
+        """Profile one call; a call that runs a ppermute (`sendrecv`)
+        must show `ncclDevKernel_SendRecv`, any other NCCL's `nccl:<op>`
+        annotations (at world 1 its even exchanges are one-rank copies
+        under them), kept out of device time.  The profiler has lost
+        most of a replicate round's device rows in one trace of the
+        card (its index_select and index_copy as well as NCCL's), so a
+        trace without them is taken again, up to `tries` traces."""
+        for attempt in range(1, tries + 1):
+            rows, _, spans = profile_batch(torch, f"p2p_procs {label}", fn)
+            kernels = [r for r in rows if r[2].startswith("ncclDevKernel")]
+            notes = [r for r in spans if r[2].startswith("nccl:")]
+            if (any("SendRecv" in r[2] for r in kernels) if sendrecv
+                    else notes):
+                break
+            log(f"[p2p_procs] {label}: trace {attempt} of {tries} shows "
+                f"{len(kernels)} NCCL kernels and {len(notes)} NCCL "
+                f"annotations among {len(rows)} device rows")
+        else:
+            raise AssertionError(f"p2p_procs {label}: no trace of {tries} "
+                                 f"shows its NCCL rows")
+        log(f"[p2p_procs] {label}: NCCL kernels "
+            f"{sum(r[0] for r in kernels):.3f} device ms in "
+            f"{sum(r[1] for r in kernels)} launches "
+            f"({', '.join(sorted({r[2] for r in kernels})) or 'none'}); "
+            f"NCCL annotations {sum(r[1] for r in notes)} spanning "
+            f"{sum(r[0] for r in notes):.3f} ms")
+
+    def procs_hook(mode):
+        """Keep the pre-kill and kill-epoch states (ids only) for the
+        contains cell; at the kill epoch hold fused_query against plain
+        on one read batch, and for `first` profile that batch and one
+        replicate round, outside the launch counts."""
+        keep = keep_ids(mode)
+
+        def hook(st):
+            if st.epoch not in (KILL_EPOCH - 1, KILL_EPOCH):
+                return
+            keep(st)
+            if st.epoch != KILL_EPOCH:
+                return
+            if not isinstance(st.rt.mesh, ProcessZoneMesh):
+                raise AssertionError("p2p_procs: not on the process mesh")
+
+            def batch():
+                return st.rt.search(st.hyperplanes, st.store, st.queries,
+                                    cache=st.cache, replicas=st.replicas,
+                                    live=st.live)
+
+            with uncounted():
+                hold_at_path_shapes(f"p2p_procs failure_{mode} epoch "
+                                    f"{KILL_EPOCH}", batch, ("fused_query",))
+                if mode == "first":
+                    nccl_profile(f"read batch ({mode}, node {VICTIM} dead)",
+                                 batch, sendrecv=False)
+                    nccl_profile("replicate round (R = 2, 4 nodes)",
+                                 lambda: st.rt.replicate_store(st.store),
+                                 sendrecv=True)
+        return hook
+
+    kept = {}
+    for mode in ("first", "quorum"):
+        obs = Observability()
+        fail_p = counted("p2p_procs", ("fused_query",),
+                         lambda: run_failure_churn(
+                             FailureChurnConfig(churn=ccfg, n_nodes=4,
+                                                replication=2, read_mode=mode,
+                                                kills=((KILL_EPOCH, VICTIM),)),
+                             obs=obs, device=dev, on_read=procs_hook(mode)))
+        same_result(f"p2p_procs failure_{mode}", fail_p, fails_one[mode])
+        if flight_rows(obs) != flights_one[mode]:
+            raise AssertionError(f"p2p_procs failure_{mode}: flight records "
+                                 "differ from the one-process run's")
+        epoch_ms_line(f"failure_{mode} (flight records equal too)", fail_p,
+                      fails_one[mode])
+    creps_p = counted("p2p_procs", ("fused_contains",), contains_cell)
+    for mode, (hits, cstats, ms) in creps_p.items():
+        want_h, want_s, want_ms = creps_one[mode]
+        if not (torch.equal(hits, want_h) and cstats.host() == want_s):
+            raise AssertionError(f"p2p_procs contains_replicated {mode}: "
+                                 "differs from the one-process cell")
+        log(f"[p2p_procs] contains_replicated {mode} on the killed mesh: "
+            f"hits and counters equal to the one-process cell; {ms:.3f} ms "
+            f"per batch of {NQ} (one process {want_ms:.3f} ms)")
+        hold_at_path_shapes(f"p2p_procs contains_replicated {mode}",
+                            lambda: contains_at(mode, KILL_EPOCH),
+                            ("fused_contains",))
+    node_p = counted("p2p_procs", ("fused_query",), lambda: run_node_churn(
+        NodeChurnConfig(churn=ccfg, schedule=sched), device=dev))
+    same_result("p2p_procs node_churn", node_p, node)
+    epoch_ms_line(f"node_churn {sched}", node_p, node)
+    t0 = time.perf_counter()
+    with spied(keep_state=False) as seen_p, served_ids() as p_ids:
+        fp_out = counted("p2p_procs", ("fused_query", "bucket_topk"),
+                         lambda: run_serve_failure(fcfg, device=dev))
+    wall = time.perf_counter() - t0
+    rec_p = seen_p[-1]
+    if not isinstance(rec_p.backend.runtime.mesh, ProcessZoneMesh):
+        raise AssertionError("p2p_procs serve_failure: not on the process "
+                             "mesh")
+    same_result("p2p_procs serve_failure", fp_out, f_out)
+    if len(p_ids) != len(f_ids) or not all(
+            np.array_equal(a, b) for a, b in zip(p_ids, f_ids)):
+        raise AssertionError("p2p_procs serve_failure: served ids differ "
+                             "from the one-process run's")
+    log(f"[p2p_procs] serve_failure through RuntimeBackend on the process "
+        f"mesh: {len(p_ids)} searches, ids, recalls and serving counters "
+        f"equal to the one-process run; {wall:.1f} s, "
+        f"{wall * 1e3 / (EPOCHS + 1):.1f} ms per epoch (one process "
+        f"{f_wall:.1f} s)")
+    hold_at_path_shapes("p2p_procs serve failure", lambda: rec_p.backend
+                        .dispatch(rec_p.q, rec_p.ex, M),
+                        ("fused_query", "bucket_topk"))
+    got = by_path["p2p_procs"]
+    if not (got["fused_query"] and got["fused_contains"]
+            and (got["bucket_topk"] or got["hamming_words"])):
+        raise AssertionError(f"p2p_procs: kernels never launched: {got}")
+    tdist.destroy_process_group()
+    log(f"[p2p_procs] phase 11b in {time.perf_counter() - p2p_procs_wall:.1f}"
+        f" s; every cell equal to its one-process cell exactly")
+    del (kept, creps_p, creps_one, fails_one, flights_one, fail_p, node_p,
+         fp_out, seen_p, rec_p, p_ids, f_ids)
 
     # -- 14. the LM serving path (DESIGN.md Sec. 4) -------------------------
     # the index worlds of phases 3-12 are gone; what is left is small

@@ -19,6 +19,12 @@ through the runtime's insert step, GC through expire, payload freshness
 through payload sync, the CNB neighbour cache (when the topology has
 node bits) through its refresh, and queries through its search step.
 
+Under a `torch.distributed` process group every rank runs the same
+driver on the same trajectory: the meshes come from `make_zone_mesh`
+(blocks of nodes over the world, or a prefix of it where a topology has
+fewer nodes than ranks), a 1-node topology runs whole on every rank,
+and every rank returns the same, global, results.
+
   * `run_churn(cfg)`             - the 1-node topology (the reference);
   * `run_churn_distributed(cfg)` - the same loop on an n-node zone mesh;
   * `run_node_churn(cfg)`        - the node set joins and leaves on a
@@ -53,7 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.core import costmodel, metrics
 from repro_torch.core.hashing import LshParams, make_hyperplanes
 from repro_torch.core.runtime import IndexRuntime, RuntimeConfig, kill_node, \
-    require_one_process, reshard
+    reshard
 from repro_torch.core.store import make_store
 from repro_torch.obs.flight import QueryRecord
 
@@ -191,8 +197,7 @@ def make_churn_runtime(
     exclusion, so the driver drops the query's own id on the host, the
     same convention on every topology.  cap_factor = n_shards guarantees
     zero drops (the worst case routes every probe of a node to one
-    owner).  One process only (ROADMAP item 6b)."""
-    require_one_process(mesh, "the churn drivers")
+    owner)."""
     params = LshParams(d=cfg.dim, k=cfg.k, L=cfg.L, seed=cfg.seed + 1)
     rcfg = RuntimeConfig(
         params=params, n_nodes=n_shards, variant="cnb", m=cfg.m + 1,
@@ -538,8 +543,9 @@ def run_churn_distributed(
     device=None,
     hyperplanes=None,
 ) -> dict:
-    """The same trajectory on an n_shards-node zone mesh (all nodes on
-    one device: `mesh`'s, or `device`'s)."""
+    """The same trajectory on an n_shards-node zone mesh: `mesh`, or
+    `make_zone_mesh(n_shards)` on `device` (one device, or the
+    processes of the world)."""
     if mesh is None:
         mesh = _zone_mesh(n_shards, device)
     return run_churn_runtime(
@@ -569,8 +575,8 @@ def run_node_churn(cfg: NodeChurnConfig, mesh_for=None, obs=None, *,
     Membership rounds fire at the scheduled epochs (`runtime.reshard`:
     bucket-state handoff to the new zone owners, cache rewarm), with
     handoff bytes charged beside the refresh bytes.  An n-node topology
-    holds its n nodes on one device (`mesh_for(n)`, default a zone mesh
-    on `device`)."""
+    runs on `mesh_for(n)`, by default `make_zone_mesh(n)` on `device`:
+    its n nodes on one device, or over the processes of the world."""
     sched = _expand_schedule(cfg.schedule, cfg.churn.epochs)
     n0 = sched[0]
     dev = resolve_device(device)

@@ -12,12 +12,14 @@ module is only the mesh side of that layer:
     batch shards over the batch axes in node order; every rank of a
     process mesh is handed the whole batch, serves its slice, and
     returns the whole batch's results, all-gathered, so a caller's code
-    is the same on both meshes;
+    is the same on both meshes.  A rank past a prefix mesh's ranks
+    holds empty zones, skips the step bodies, and receives the results
+    by broadcast (`mesh.on_nodes`);
   * the step wrappers binding each body to `MeshCollectives` or
     `BlockCollectives` (`search_step_fn` / `make_search_step`,
     `make_contains_step`, `make_insert_step`, `make_payload_sync`,
-    `make_refresh_cache`, `make_replicate_store`) plus the sum of the
-    per-node accounting (`_psum_stats`);
+    `make_refresh_cache`, `make_replicate_store`, `make_expire_step`)
+    plus the sum of the per-node accounting (`_psum_stats`);
   * the wire byte model (`estimate_query_bytes`, `estimate_refresh_bytes`,
     `estimate_reshard_bytes`): the Table-1 analogue in bytes, the same
     closed forms as the reference's.
@@ -45,9 +47,8 @@ import torch
 
 from repro_torch.core import packed
 from repro_torch.core import runtime as runtime_mod
-from repro_torch.core.runtime import (
-    RuntimeConfig, StepStats, _route_cap, require_one_process,
-)
+from repro_torch.core import store as store_mod
+from repro_torch.core.runtime import RuntimeConfig, StepStats, _route_cap
 from repro_torch.core.store import BucketStore
 
 
@@ -65,6 +66,12 @@ def _node_slices(mesh, x: torch.Tensor) -> torch.Tensor:
     its order."""
     sl = mesh.my_slices(x)
     return sl.reshape((sl.shape[1], -1) + x.shape[1:])
+
+
+def _no_zones(x: torch.Tensor, slices: int) -> torch.Tensor:
+    """[T, slices, 0, ...]: the empty cache or replica slices of a rank
+    that holds no zones (`x` its empty [T, 0, ...] store slice)."""
+    return x.new_empty((x.shape[0], slices) + x.shape[1:])
 
 
 # -----------------------------------------------------------------------------
@@ -90,6 +97,8 @@ def make_refresh_cache(cfg: RuntimeConfig, mesh):
     perms = [cfg.topo.neighbor_perm(j) for j in range(cfg.node_bits)]
 
     def refresh(ids, payload):
+        if not mesh.active:
+            return _no_zones(ids, len(perms)), _no_zones(payload, len(perms))
         return (runtime_mod.permuted_zones(cx, ids, perms),
                 runtime_mod.permuted_zones(cx, payload, perms))
 
@@ -103,15 +112,29 @@ def make_replicate_store(cfg: RuntimeConfig, mesh):
 
     Returns fn(ids, payload) -> (rep_ids [T, R-1, NB, C], rep_payload
     [T, R-1, NB, C, D|W]), zone i of slice r-1 holding the zone of node
-    (i - r) % n, as the reference's sharded slices do.  One process
-    only (ROADMAP item 6b)."""
-    require_one_process(mesh, "make_replicate_store")
+    (i - r) % n, as the reference's sharded slices do: on a process
+    mesh, this block's zones of them."""
     cx = mesh.collectives(cfg)
 
     def replicate(ids, payload):
+        if not mesh.active:
+            r = cfg.replication - 1
+            return _no_zones(ids, r), _no_zones(payload, r)
         return runtime_mod.replicate_kernel(cfg, cx, ids, payload)
 
     return replicate
+
+
+def make_expire_step(mesh):
+    """GC on a process mesh: `store.expire` on this rank's zones, the
+    generation bumped where any rank collected, so that it stays equal
+    on every rank."""
+    def expire(store: BucketStore, now, ttl: int) -> BucketStore:
+        new = store_mod.expire(store, now, ttl)
+        bump = mesh.reduce_ranks(new.generation - store.generation, "max")
+        return dataclasses.replace(new, generation=store.generation + bump)
+
+    return expire
 
 
 # -----------------------------------------------------------------------------
@@ -132,6 +155,26 @@ def _psum_stats(mesh, per_node: list[StepStats]) -> StepStats:
                      **dict(zip(names, mesh.sum_stats(totals))))
 
 
+_STAT_NAMES = [f.name for f in dataclasses.fields(StepStats)]
+
+
+def _stats_like(cfg: RuntimeConfig) -> list:
+    """The (shape, dtype) of each `StepStats` field, in field order."""
+    return [((cfg.n_nodes,) if name == "dropped_by_dest" else (),
+             torch.int32) for name in _STAT_NAMES]
+
+
+def _on_nodes(mesh, fn, like, n_out: int):
+    """`mesh.on_nodes` for a step whose `fn` returns (*outputs, stats):
+    the stats travel as their fields."""
+    def flat():
+        *outs, stats = fn()
+        return outs + [getattr(stats, name) for name in _STAT_NAMES]
+
+    got = mesh.on_nodes(flat, like)
+    return (*got[:n_out], StepStats(**dict(zip(_STAT_NAMES, got[n_out:]))))
+
+
 def search_step_fn(cfg: RuntimeConfig):
     """The distributed search step, as a function of the mesh:
     ``search_step_fn(cfg)(mesh)`` is fn(hyperplanes, store_ids,
@@ -145,8 +188,6 @@ def search_step_fn(cfg: RuntimeConfig):
     has_reps = cfg.replication > 1
 
     def on_mesh(mesh):
-        if has_reps:
-            require_one_process(mesh, "a replicated read")
         cx = mesh.collectives(cfg)
 
         def step(hyperplanes, ids, payload, *rest):
@@ -159,15 +200,21 @@ def search_step_fn(cfg: RuntimeConfig):
                 kw = dict(rep_ids=rest.pop(0), rep_payload=rest.pop(0),
                           live=rest.pop(0))
             (q,) = rest
-            outs = [runtime_mod.search_kernel(cfg, cx, cfg.m, hyperplanes,
-                                              ids, payload, c_ids, c_payload,
-                                              q_row, **kw)
-                    for q_row in mesh.my_slices(q)]
-            return (mesh.whole_batch(torch.cat(
-                        [o[0] for o in outs]).reshape(-1, cfg.m)),
-                    mesh.whole_batch(torch.cat(
-                        [o[1] for o in outs]).reshape(-1, cfg.m)),
-                    _psum_stats(mesh, [o[2] for o in outs]))
+
+            def body():
+                outs = [runtime_mod.search_kernel(
+                    cfg, cx, cfg.m, hyperplanes, ids, payload, c_ids,
+                    c_payload, q_row, **kw) for q_row in mesh.my_slices(q)]
+                return (mesh.whole_batch(torch.cat(
+                            [o[0] for o in outs]).reshape(-1, cfg.m)),
+                        mesh.whole_batch(torch.cat(
+                            [o[1] for o in outs]).reshape(-1, cfg.m)),
+                        _psum_stats(mesh, [o[2] for o in outs]))
+
+            b = q.shape[0]
+            return _on_nodes(mesh, body, [((b, cfg.m), torch.int32),
+                                          ((b, cfg.m), torch.float32)]
+                             + _stats_like(cfg), 2)
 
         return step
 
@@ -187,8 +234,6 @@ def make_contains_step(cfg: RuntimeConfig, mesh):
     cx = mesh.collectives(cfg)
     has_cache = cfg.variant == "cnb" and cfg.node_bits > 0
     has_reps = cfg.replication > 1
-    if has_reps:
-        require_one_process(mesh, "a replicated read")
 
     def step(hyperplanes, ids, *rest):
         rest = list(rest)
@@ -197,13 +242,18 @@ def make_contains_step(cfg: RuntimeConfig, mesh):
         if has_reps:
             kw = dict(rep_ids=rest.pop(0), live=rest.pop(0))
         q, targets = rest
-        outs = [runtime_mod.contains_kernel(cfg, cx, hyperplanes, ids, c_ids,
-                                            q_row, t_row, **kw)
-                for q_row, t_row in zip(mesh.my_slices(q),
-                                        mesh.my_slices(targets))]
-        return (mesh.whole_batch(torch.cat([o[0] for o in outs]).reshape(
-                    -1)),
-                _psum_stats(mesh, [o[1] for o in outs]))
+
+        def body():
+            outs = [runtime_mod.contains_kernel(cfg, cx, hyperplanes, ids,
+                                                c_ids, q_row, t_row, **kw)
+                    for q_row, t_row in zip(mesh.my_slices(q),
+                                            mesh.my_slices(targets))]
+            return (mesh.whole_batch(torch.cat(
+                        [o[0] for o in outs]).reshape(-1)),
+                    _psum_stats(mesh, [o[1] for o in outs]))
+
+        return _on_nodes(mesh, body, [((q.shape[0],), torch.bool)]
+                         + _stats_like(cfg), 1)
 
     return step
 
@@ -215,6 +265,9 @@ def make_insert_step(cfg: RuntimeConfig, mesh):
     cx = mesh.collectives(cfg)
 
     def insert(hyperplanes, store: BucketStore, vec, vid, now):
+        if not mesh.active:  # no zones; the generation moves as everywhere
+            return dataclasses.replace(
+                store, generation=store.generation + cfg.params.L)
         return runtime_mod.insert_kernel(
             cfg, cx, hyperplanes, store, _node_slices(mesh, vec),
             _node_slices(mesh, vid), now)
@@ -227,13 +280,13 @@ def make_payload_sync(cfg: RuntimeConfig, mesh):
     cx = mesh.collectives(cfg)
 
     def apply(store: BucketStore, vec):
-        nodes = _node_slices(mesh, vec)
         # a payload rewrite changes scores, so it invalidates cached results
         # the same way insert/expire do: bump the store generation
         return dataclasses.replace(
             store,
-            payload=runtime_mod.payload_sync_kernel(cx, store.ids,
-                                                    store.payload, nodes),
+            payload=store.payload if not mesh.active
+            else runtime_mod.payload_sync_kernel(
+                cx, store.ids, store.payload, _node_slices(mesh, vec)),
             generation=store.generation + 1,
         )
 

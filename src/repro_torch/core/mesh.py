@@ -46,6 +46,22 @@ def _slices(mesh, x: torch.Tensor) -> torch.Tensor:
     return x.reshape((shards, -1) + x.shape[1:])
 
 
+def _broadcast(outs, like, device) -> list:
+    """The tensors `outs` of rank 0 on every rank of the world, in one
+    broadcast of their bytes; `like` gives each one's (shape, dtype),
+    which a rank without `outs` (None) allocates."""
+    sizes = [int(torch.Size(shape).numel()) * torch.empty(
+        (), dtype=dtype).element_size() for shape, dtype in like]
+    if outs is None:
+        wire = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+    else:
+        wire = torch.cat([o.contiguous().reshape(-1).view(torch.uint8)
+                          for o in outs])
+    tdist.broadcast(wire, src=0)
+    return [part.clone().view(dtype).reshape(shape) for part, (shape, dtype)
+            in zip(wire.split(sizes), like)]
+
+
 def _placed(store: BucketStore, zones: slice, device) -> BucketStore:
     """The store's bucket range `zones` on `device` (the generation is
     global)."""
@@ -66,6 +82,7 @@ class ZoneMesh:
     device: torch.device
     batch_axes: tuple = ("data", "model")
     world = 1
+    active = True
 
     @property
     def shape(self) -> dict:
@@ -86,19 +103,36 @@ class ZoneMesh:
         """The global store IS the sharded store: a move to the device."""
         return _placed(store, slice(None), self.device)
 
+    def global_store(self, store: BucketStore, num_buckets: int):
+        """The global store: this one, as views."""
+        return _placed(store, slice(None), store.ids.device)
+
+    def local_node(self, node: int) -> int:
+        """Node `node`'s place in this process's store slice."""
+        return node
+
     def sum_stats(self, totals: list) -> list:
         return totals
+
+    def on_nodes(self, fn, like) -> list:
+        return fn()
+
+    def reduce_ranks(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return x
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProcessZoneMesh:
     """This process's place in a mesh of `data` rows of `n_model` nodes
-    spread over a `torch.distributed` world of `data x blocks` ranks.
+    spread over the first `data x blocks` ranks (`ranks`) of a
+    `torch.distributed` world of `world` ranks.
 
     `model_group` holds the ranks of this rank's data row (the model
-    axis, None meaning the default group); the default group is the
-    batch group.  `pod` > 1 splits the data rows into pods, for the
-    shape of a multi-pod mesh."""
+    axis, None meaning the default group); `batch_group` the mesh's
+    ranks (None: the default group, when they are the whole world).
+    `prefix` > 0 is the mesh's rank count where it is a prefix of the
+    world (0: every rank).  `pod` > 1 splits the data rows into pods,
+    for the shape of a multi-pod mesh."""
 
     n_model: int
     data: int
@@ -107,10 +141,22 @@ class ProcessZoneMesh:
     world: int
     model_group: object = None
     pod: int = 1
+    prefix: int = 0
+    batch_group: object = None
+
+    @property
+    def ranks(self) -> int:
+        """The ranks that hold nodes: ranks 0 .. ranks-1."""
+        return self.prefix or self.world
+
+    @property
+    def active(self) -> bool:
+        """Does this rank hold nodes?  The ranks past a prefix do not."""
+        return self.rank < self.ranks
 
     @property
     def blocks(self) -> int:
-        return self.world // self.data
+        return self.ranks // self.data
 
     @property
     def n_loc(self) -> int:
@@ -138,7 +184,8 @@ class ProcessZoneMesh:
     def collectives(self, cfg) -> BlockCollectives:
         return BlockCollectives(n=cfg.n_nodes, n_loc=self.n_loc,
                                 block=self.block, device=self.device,
-                                group=self.model_group)
+                                group=self.model_group,
+                                batch_group=self.batch_group)
 
     def my_slices(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] -> [1, n_loc, B/(data*n), ...]: the slices of this
@@ -148,23 +195,74 @@ class ProcessZoneMesh:
 
     def whole_batch(self, x: torch.Tensor) -> torch.Tensor:
         """The whole batch's [B, ...] results from this process's
-        [b, ...]: all-gathered over every rank, in rank order."""
+        [b, ...]: all-gathered over the mesh's ranks, in rank order."""
         wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-        out = wire.new_empty((self.world * x.shape[0],) + x.shape[1:])
-        tdist.all_gather_into_tensor(out, wire)
+        out = wire.new_empty((self.ranks * x.shape[0],) + x.shape[1:])
+        tdist.all_gather_into_tensor(out, wire, group=self.batch_group)
         return out > 0 if x.dtype == torch.bool else out
+
+    def _zone_width(self, nb: int) -> int:
+        return nb // self.blocks
 
     def store_zones(self, store: BucketStore) -> BucketStore:
         """This block's zones of a host-built store, [T, n_loc*NB/n, C(,
-        D|W)], as views (at one rank: the store itself, no copy)."""
-        w = store.ids.shape[1] // self.n_model * self.n_loc
-        zones = slice(self.block * w, (self.block + 1) * w)
+        D|W)], as views (at one rank: the store itself, no copy); an
+        empty slice on a rank past the prefix."""
+        w = self._zone_width(store.ids.shape[1])
+        lo = self.block * w if self.active else 0
+        zones = slice(lo, lo + w if self.active else 0)
         return _placed(store, zones, self.device)
 
+    def global_store(self, store: BucketStore, num_buckets: int):
+        """The global [T, NB, ...] store on every rank, from the blocks'
+        zones (`store`), all-gathered over the world (a rank past the
+        prefix sends fill); at a world of one, the store itself."""
+        if self.world == 1:
+            return _placed(store, slice(None), store.ids.device)
+        w = self._zone_width(num_buckets)
+
+        def gather(x):
+            if x is None:
+                return None
+            zones = x.movedim(1, 0)
+            if not self.active:
+                zones = zones.new_zeros((w,) + zones.shape[1:])
+            out = zones.new_empty((self.world * w,) + zones.shape[1:])
+            tdist.all_gather_into_tensor(out, zones.contiguous())
+            return out[:self.blocks * w].movedim(0, 1).contiguous()
+
+        return BucketStore(gather(store.ids), gather(store.timestamps),
+                           gather(store.write_ptr), gather(store.payload),
+                           store.generation)
+
+    def local_node(self, node: int) -> int | None:
+        """Node `node`'s place in this rank's store slice, or None where
+        this rank does not hold it."""
+        local = node - self.block * self.n_loc
+        return local if self.active and 0 <= local < self.n_loc else None
+
     def sum_stats(self, totals: list) -> list:
-        """Each tensor of `totals` summed over every rank, in one
+        """Each tensor of `totals` summed over the mesh's ranks, in one
         all_reduce."""
         flat = torch.cat([t.reshape(-1) for t in totals])
-        tdist.all_reduce(flat)
+        tdist.all_reduce(flat, group=self.batch_group)
         return [f.reshape(t.shape) for f, t in zip(
             flat.split([t.numel() for t in totals]), totals)]
+
+    def on_nodes(self, fn, like) -> list:
+        """`fn()`'s list of tensors, computed by the ranks that hold
+        nodes, on every rank: a rank past the prefix receives rank 0's
+        by one broadcast over the world; `like` gives each output's
+        (shape, dtype)."""
+        outs = fn() if self.active else None
+        if self.ranks == self.world:
+            return outs
+        return _broadcast(outs, like, self.device)
+
+    def reduce_ranks(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """`x` reduced (`sum` or `max`) over every rank of the world."""
+        out = x.clone()
+        if self.world > 1:
+            tdist.all_reduce(out, op=dict(sum=tdist.ReduceOp.SUM,
+                                          max=tdist.ReduceOp.MAX)[op])
+        return out

@@ -265,14 +265,16 @@ class BlockCollectives:
     `MeshCollectives` (the reference's `jax.lax` collectives over
     `model`), each exchange going through `group`'s collective, the part
     that stays inside the process included.  `group` is the model axis,
-    this data row's processes (None: the default group); the batch axes
-    are every process, the default group."""
+    this data row's processes (None: the default group); `batch_group`
+    the batch axes, every process of the mesh (None: the default
+    group)."""
 
     n: int
     n_loc: int
     block: int
     device: torch.device
     group: object = None
+    batch_group: object = None
     routed = True
 
     @property
@@ -313,9 +315,10 @@ class BlockCollectives:
         return self._gather(x, self.group, self.n // self.n_loc)
 
     def all_gather_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """[n_loc, a, ...] -> the concat over every process, in rank
-        order: the batch in its order."""
-        return self._gather(x, None, tdist.get_world_size())
+        """[n_loc, a, ...] -> the concat over every process of the mesh,
+        in rank order: the batch in its order."""
+        return self._gather(x, self.batch_group,
+                            tdist.get_world_size(self.batch_group))
 
     def ppermute(self, x: torch.Tensor, perm, axis: int = 0) -> torch.Tensor:
         """Send slice `src` of the node axis to `dst` for each global (src,
@@ -346,14 +349,23 @@ class BlockCollectives:
         return total
 
 
-def require_one_process(mesh, what: str) -> None:
-    """Refuse `what` on a mesh of several processes: it is ROADMAP item
-    6b, and computing it on this process's block alone would quietly
-    answer for a part of the nodes."""
-    if mesh is not None and mesh.world > 1:
+def process_world() -> int:
+    """Processes in the default `torch.distributed` group (1 without
+    one)."""
+    return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+def require_one_process(what: str) -> None:
+    """Refuse `what` in a world of several processes: every rank must
+    take the same batches in the same order, which a wall clock or a
+    writer thread does not give; it is ROADMAP item 6c (a controller
+    rank that forms each batch and broadcasts it)."""
+    world = process_world()
+    if world > 1:
         raise NotImplementedError(
-            f"{what} on a mesh of {mesh.world} processes is ROADMAP item "
-            "6b; run it on a one-process mesh")
+            f"{what} in a world of {world} processes is ROADMAP item 6c (a "
+            "controller rank that forms each batch and broadcasts it); run "
+            "it in one process")
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -1404,8 +1416,11 @@ class IndexRuntime:
 
     def make_expire_step(self):
         """GC is elementwise over bucket state: the same op on every
-        topology (zone-local on a mesh store by construction)."""
-        return store_mod.expire
+        topology (zone-local on a mesh store by construction); on a
+        process mesh the generation bumps where any rank collected."""
+        if self.mesh is None or self.mesh.world == 1:
+            return store_mod.expire
+        return self._dist().make_expire_step(self.mesh)
 
     def make_payload_sync(self):
         """``fn(store, vec)`` -> the store with every live slot's payload
@@ -1463,6 +1478,18 @@ class IndexRuntime:
         if step is None:
             return None
         return step(store.ids, store.payload)
+
+    def mean_occupancy(self, store: BucketStore) -> float:
+        """Live entries per bucket, over every zone of the store (on a
+        process mesh, summed over the ranks)."""
+        occ = store.occupancy()
+        if self.mesh is None:
+            return int(occ.sum()) / occ.numel()
+        tot = self.mesh.reduce_ranks(torch.stack([
+            occ.sum(dtype=torch.int64),
+            torch.tensor(occ.numel(), dtype=torch.int64,
+                         device=occ.device)]))
+        return int(tot[0]) / int(tot[1])
 
     def _live(self, replicas, live) -> torch.Tensor | None:
         """The liveness mask [n] int32 on the device (all live by default)
@@ -1577,10 +1604,16 @@ def kill_node(rt: IndexRuntime, store: BucketStore, replicas, node: int):
     them.  Bumps `generation`, so caches drop results that may hold the
     dead node's rows.  Functional: returns a new (store, replicas) and
     leaves the inputs as they were.  Pair it with a 0 in the `live` mask
-    until the next re-announce repopulates the zone.  One process only
-    (ROADMAP item 6b)."""
-    require_one_process(getattr(rt, "mesh", None), "kill_node")
+    until the next re-announce repopulates the zone.  On a process mesh
+    the rank that holds the node blanks its place in its slices, and
+    every rank bumps the generation."""
     s, e = rt.topology.zone_range(node)
+    mesh = getattr(rt, "mesh", None)
+    local = node if mesh is None else mesh.local_node(node)
+    if local is None:
+        return dataclasses.replace(store, generation=store.generation + 1), \
+            replicas
+    s, e = local * (e - s), (local + 1) * (e - s)
     new_store = BucketStore(
         ids=_blanked(store.ids, 1, s, e, store_mod.EMPTY),
         timestamps=_blanked(store.timestamps, 1, s, e, 0),
@@ -1618,15 +1651,20 @@ class ReshardEvent:
     handoff_bytes: int
 
 
-def gather_store(store: BucketStore) -> BucketStore:
+def gather_store(store: BucketStore, mesh=None,
+                 num_buckets: int | None = None) -> BucketStore:
     """The global view of a (possibly mesh-placed) store.
 
     The zones are contiguous slices of one global bucket array, and on
     one device that array is the store itself: the view shares its
-    tensors, with no copy and no trip to the host.  (Real deployments
+    tensors, with no copy and no trip to the host.  On a process mesh
+    of several ranks (`mesh`, with the global `num_buckets`) it is an
+    all-gather of the blocks' zones over the world.  (Real deployments
     ship only the moved slices; `ReshardEvent` charges exactly those.)"""
-    return BucketStore(store.ids, store.timestamps, store.write_ptr,
-                       store.payload, store.generation)
+    if mesh is None:
+        return BucketStore(store.ids, store.timestamps, store.write_ptr,
+                           store.payload, store.generation)
+    return mesh.global_store(store, num_buckets)
 
 
 def reshard(
@@ -1653,12 +1691,11 @@ def reshard(
     runtime's device).  CNB caches are not migrated: rebuild them with
     `new_rt.refresh_cache(new_store)`.  Returns (new_runtime,
     migrated_store, ReshardEvent); the store's generation is bumped.
-    One process only (ROADMAP item 6b)."""
+    On a process mesh every rank takes part: the old blocks' zones are
+    gathered over the world and the new mesh cuts its own."""
     from repro_torch.core import costmodel
     from repro_torch.core.can import moved_buckets
 
-    for m in (rt.mesh, mesh, None if runtime is None else runtime.mesh):
-        require_one_process(m, "reshard")
     if runtime is not None:
         if mesh is not None or cap_factor is not None:
             raise ValueError(
@@ -1688,7 +1725,7 @@ def reshard(
         new_rt = IndexRuntime(cfg, mesh=mesh,
                               device=None if mesh is not None else rt.device)
 
-    glob = gather_store(store)
+    glob = gather_store(store, rt.mesh, rt.cfg.params.num_buckets)
     glob.generation = glob.generation + 1
     new_store = new_rt.shard_store(glob)
     d = 0 if glob.payload is None else int(glob.payload.shape[-1])

@@ -9,14 +9,20 @@ recall, recall gap against the no-failure reference on the same RNG
 trajectory, replication and recovery bytes, router drops.
 
 All nodes live in this one process on one device (the CUDA card unless
-`--device cpu`), so no host-device setup is needed.
+`--device cpu`), or, under torchrun, in blocks over its processes (gloo
+ranks with `--device cpu`, NCCL over one card a rank otherwise); every
+rank runs the scenario and rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.failure_churn --smoke --device cpu
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.failure_churn --smoke --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+
+from repro_torch.launch.mesh import say
 
 
 def _parse_kills(text: str) -> tuple[tuple[int, int], ...]:
@@ -55,19 +61,19 @@ def run(args, obs=None) -> dict:
         read_mode=args.read_mode, kills=kills,
     ), obs=obs, device=args.device)
 
-    print(f"[failure-churn] n_nodes={args.n_nodes} R={args.replication} "
+    say(f"[failure-churn] n_nodes={args.n_nodes} R={args.replication} "
           f"read_mode={args.read_mode} "
           f"kills={','.join(f'{e}:{v}' for e, v in kills)} "
           f"refresh_every={cfg.refresh_every}")
-    print("epoch,live,recall,ref_recall,gap,replication_bytes,"
+    say("epoch,live,recall,ref_recall,gap,replication_bytes,"
           "recovery_bytes,dropped")
     for i in range(len(out["recalls"])):
-        print(f"{i + 1},{out['live_nodes'][i]},{out['recalls'][i]:.4f},"
+        say(f"{i + 1},{out['live_nodes'][i]},{out['recalls'][i]:.4f},"
               f"{out['reference_recalls'][i]:.4f},"
               f"{out['recall_gap'][i]:+.4f},"
               f"{out['replication_bytes'][i]},{out['recovery_bytes'][i]},"
               f"{out['dropped_probes'][i]}")
-    print(f"[failure-churn] degraded_gap={out['degraded_gap']:.4f} "
+    say(f"[failure-churn] degraded_gap={out['degraded_gap']:.4f} "
           f"recovered_gap={out['recovered_gap']:.4f} "
           f"recovery_epochs={out['recovery_epochs']} "
           f"total_replication_bytes={out['total_replication_bytes']} "
@@ -77,6 +83,8 @@ def run(args, obs=None) -> dict:
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import is_rank0, torchrun_group
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="small preset + sanity assertions")
@@ -118,22 +126,22 @@ def main(argv=None):
 
         obs = Observability()
 
-    out = run(args, obs=obs)
+    with torchrun_group(args.device):
+        out = run(args, obs=obs)
+        if obs is not None and is_rank0():
+            if args.trace_out:
+                obs.export_trace(args.trace_out)
+                say(f"[failure-churn] trace -> {args.trace_out}")
+            if args.metrics_out:
+                obs.export_metrics(args.metrics_out)
+                say(f"[failure-churn] metrics -> {args.metrics_out}")
 
-    if obs is not None:
-        if args.trace_out:
-            obs.export_trace(args.trace_out)
-            print(f"[failure-churn] trace -> {args.trace_out}")
-        if args.metrics_out:
-            obs.export_metrics(args.metrics_out)
-            print(f"[failure-churn] metrics -> {args.metrics_out}")
-
-    if args.smoke:
-        smoke_gates(out, obs.flight, args.L, args.users, args.d,
-                    args.replication, (1 << args.k) // args.n_nodes,
-                    args.capacity, args.refresh_every, args.epochs,
-                    len(_parse_kills(args.kills)))
-        print("[smoke] OK")
+        if args.smoke:
+            smoke_gates(out, obs.flight, args.L, args.users, args.d,
+                        args.replication, (1 << args.k) // args.n_nodes,
+                        args.capacity, args.refresh_every, args.epochs,
+                        len(_parse_kills(args.kills)))
+            say("[smoke] OK")
     return out
 
 

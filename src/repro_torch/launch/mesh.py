@@ -12,6 +12,7 @@ the process groups take its place.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -20,9 +21,10 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.core.mesh import ProcessZoneMesh, ZoneMesh  # noqa: F401
 
-# (world, data) -> (the default group they were made under, each data
-# row's group): every mesh of one layout shares its row groups
-_ROW_GROUPS: dict = {}
+# (world, data, blocks) -> (the default group they were made under, the
+# batch group, each data row's group): every mesh of one layout shares
+# its groups
+_GROUPS: dict = {}
 
 
 def _world() -> int:
@@ -58,6 +60,34 @@ def init_process_mesh(device=None, *, init_method: str = "env://",
     return dev
 
 
+@contextlib.contextmanager
+def torchrun_group(device=None):
+    """The process group that torchrun's environment (`WORLD_SIZE`)
+    describes, for the block: initialised on entry, unless one already
+    is or the environment names none, and destroyed on exit.  The
+    churn CLIs run their meshes over it."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        yield
+        return
+    init_process_mesh(device)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def is_rank0() -> bool:
+    """Rank 0 of the process group, or the one process without one: the
+    process that prints and writes files."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def say(*args, **kw) -> None:
+    """`print`, on rank 0 only."""
+    if is_rank0():
+        print(*args, **kw)
+
+
 def require_host_devices(n: int) -> None:
     """Fail fast, with the recipe, when the world holds fewer than n
     processes (the port's counterpart of the reference's `XLA_FLAGS`
@@ -75,10 +105,14 @@ def make_zone_mesh(n_model: int, data: int = 1, *, device=None, pod: int = 1):
     unless `device="cpu"`).
 
     Without an initialised process group: the one-process `ZoneMesh`.
-    With one: this rank's `ProcessZoneMesh` over the whole world, which
-    must split into `data` rows of blocks that divide `n_model`; the
-    device is `cuda:<LOCAL_RANK>`, and the group's backend must be the
-    device's (NCCL for a card, gloo for the CPU)."""
+    With one: this rank's `ProcessZoneMesh`.  The world splits into
+    `data` rows of a power-of-two number of ranks; a mesh of at least a
+    row's ranks in nodes spreads over the whole world, in blocks that
+    divide `n_model`; a smaller one over a prefix of the world, `data`
+    rows of `n_model` ranks, one node a rank (the ranks past it hold no
+    zones).  The device is `cuda:<LOCAL_RANK>`, and
+    the group's backend must be the device's (NCCL for a card, gloo for
+    the CPU)."""
     if n_model < 1 or data < 1:
         raise ValueError(f"mesh needs n_model, data >= 1, got {n_model}, "
                          f"{data}")
@@ -88,8 +122,14 @@ def make_zone_mesh(n_model: int, data: int = 1, *, device=None, pod: int = 1):
     if world % data:
         raise ValueError(f"a world of {world} processes does not split into "
                          f"{data} data rows")
-    blocks = world // data
-    if n_model % blocks:
+    row = world // data
+    if row & (row - 1):
+        raise ValueError(
+            f"a row of {row} processes is not a power of two: launch with "
+            f"`torchrun --nproc-per-node {data * (1 << row.bit_length() - 1)}"
+            " <script>` (a power of two of processes a data row)")
+    blocks = min(int(n_model), row)
+    if n_model % blocks or n_model & (n_model - 1):
         raise ValueError(f"n_model={n_model} does not split into {blocks} "
                          "blocks of nodes, one a process")
     dev = _rank_device(device)
@@ -97,23 +137,31 @@ def make_zone_mesh(n_model: int, data: int = 1, *, device=None, pod: int = 1):
     if backend != _backend_of(dev):
         raise ValueError(f"a mesh on {dev} runs over {_backend_of(dev)}, "
                          f"but the process group's backend is {backend}")
-    group = _row_groups(world, data)[rank // blocks] if data > 1 else None
+    ranks = data * blocks
+    batch, rows = _mesh_groups(world, data, blocks)
+    group = rows[rank // blocks] if rank < ranks else None
     return ProcessZoneMesh(int(n_model), int(data), dev, rank, world, group,
-                           int(pod))
+                           int(pod), 0 if ranks == world else ranks, batch)
 
 
-def _row_groups(world: int, data: int) -> list:
-    """The model-axis group of each of `data` rows of a world, made once
-    per default process group: every rank makes every row's group, in
-    one order, on its first mesh of that layout."""
-    made = _ROW_GROUPS.get((world, data))
+def _mesh_groups(world: int, data: int, blocks: int):
+    """(batch group, each data row's model group) of `data` rows of
+    `blocks` ranks over the first data*blocks ranks of the world, None
+    meaning the default group; made once per default process group and
+    layout: every rank makes every group, in one order, on its first
+    mesh of that layout (NCCL deadlocks otherwise)."""
+    key = (world, data, blocks)
+    made = _GROUPS.get(key)
     if made is None or made[0] is not dist.group.WORLD:
-        blocks = world // data
-        made = (dist.group.WORLD,
-                [dist.new_group(list(range(r * blocks, (r + 1) * blocks)))
-                 for r in range(data)])
-        _ROW_GROUPS[(world, data)] = made
-    return made[1]
+        ranks = data * blocks
+        batch = None if ranks == world else dist.new_group(
+            list(range(ranks)))
+        rows = [batch] if data == 1 else [
+            dist.new_group(list(range(r * blocks, (r + 1) * blocks)))
+            for r in range(data)]
+        made = (dist.group.WORLD, batch, rows)
+        _GROUPS[key] = made
+    return made[1], made[2]
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,

@@ -9,14 +9,21 @@ static-topology reference (`run_churn`) on the same RNG trajectory and
 reports the recall gap (the acceptance bound is 0.02).
 
 Every node count's nodes live in this one process on one device (the
-CUDA card unless `--device cpu`), so no host-device setup is needed.
+CUDA card unless `--device cpu`), or, under torchrun, over its processes
+(gloo ranks with `--device cpu`, NCCL over one card a rank otherwise; a
+node count below the world's on a prefix of the ranks); every rank runs
+the scenario and rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.node_churn --smoke --device cpu
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.node_churn --smoke --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+
+from repro_torch.launch.mesh import say
 
 
 def _parse_schedule(text: str) -> tuple[int, ...]:
@@ -47,14 +54,14 @@ def run(args, obs=None) -> dict:
     out = run_node_churn(NodeChurnConfig(churn=cfg, schedule=sched), obs=obs,
                          device=args.device)
 
-    print(f"[node-churn] schedule={','.join(map(str, sched))} "
+    say(f"[node-churn] schedule={','.join(map(str, sched))} "
           f"refresh_every={cfg.refresh_every}")
-    print("epoch,n_nodes,recall,handoff_bytes,refresh_bytes,dropped")
+    say("epoch,n_nodes,recall,handoff_bytes,refresh_bytes,dropped")
     for i in range(len(out["recalls"])):
-        print(f"{i + 1},{out['n_nodes'][i]},{out['recalls'][i]:.4f},"
+        say(f"{i + 1},{out['n_nodes'][i]},{out['recalls'][i]:.4f},"
               f"{out['handoff_bytes'][i]},{out['refresh_bytes'][i]},"
               f"{out['dropped_probes'][i]}")
-    print(f"[node-churn] mean_recall={out['mean_recall']:.4f} "
+    say(f"[node-churn] mean_recall={out['mean_recall']:.4f} "
           f"rounds={len(out['reshard_events'])} "
           f"total_handoff_bytes={out['total_handoff_bytes']} "
           f"total_refresh_bytes={out['total_refresh_bytes']} "
@@ -63,13 +70,15 @@ def run(args, obs=None) -> dict:
     if args.reference:
         ref = run_churn(cfg, device=args.device)
         gap = float(np.abs(out["recalls"] - ref["recalls"]).max())
-        print(f"[node-churn] static-reference recall gap (max |diff|) = "
+        say(f"[node-churn] static-reference recall gap (max |diff|) = "
               f"{gap:.4f}")
         out["reference_gap"] = gap
     return out
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import is_rank0, torchrun_group
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="small preset + sanity assertions")
@@ -112,24 +121,24 @@ def main(argv=None):
 
         obs = Observability()
 
-    out = run(args, obs=obs)
+    with torchrun_group(args.device):
+        out = run(args, obs=obs)
+        if obs is not None and is_rank0():
+            # every membership round must have dumped the flight ring
+            rounds = len(out["reshard_events"])
+            dumped = sum(d["reason"] == "reshard" for d in obs.flight.dumps)
+            if dumped != rounds:
+                raise SystemExit(f"{dumped} reshard dumps for {rounds} rounds")
+            if args.trace_out:
+                obs.export_trace(args.trace_out)
+                say(f"[node-churn] trace -> {args.trace_out}")
+            if args.metrics_out:
+                obs.export_metrics(args.metrics_out)
+                say(f"[node-churn] metrics -> {args.metrics_out}")
 
-    if obs is not None:
-        # every membership round must have dumped the flight ring
-        rounds = len(out["reshard_events"])
-        dumped = sum(d["reason"] == "reshard" for d in obs.flight.dumps)
-        if dumped != rounds:
-            raise SystemExit(f"{dumped} reshard dumps for {rounds} rounds")
-        if args.trace_out:
-            obs.export_trace(args.trace_out)
-            print(f"[node-churn] trace -> {args.trace_out}")
-        if args.metrics_out:
-            obs.export_metrics(args.metrics_out)
-            print(f"[node-churn] metrics -> {args.metrics_out}")
-
-    if args.smoke:
-        _smoke_gates(args, out)
-        print("[smoke] OK")
+        if args.smoke:
+            _smoke_gates(args, out)
+            say("[smoke] OK")
     return out
 
 

@@ -48,6 +48,7 @@ from repro_torch.core import (
     DenseCorpus, EngineConfig, LshEngine, LshParams, make_hyperplanes,
 )
 from repro_torch.core.hashing import sketch_codes_batched
+from repro_torch.core.runtime import require_one_process
 from repro_torch.core.store import build_store_host, expire, insert_batch
 from repro_torch.obs import Observability, ObsConfig
 from repro_torch.serve import (
@@ -185,7 +186,10 @@ def run_openloop(args, obs=None) -> dict:
     offered rate, served TWICE on the same warm runtime — synchronous
     (depth 1), then pipelined (`--pipeline`) — latency measured from the
     SCHEDULE (DESIGN.md Sec. 13).  Returns per-mode results plus the
-    bit-identity verdict the smoke gate checks."""
+    bit-identity verdict the smoke gate checks.  Arrivals are paced by
+    the wall clock, so the ranks of a world of several processes would
+    form different batches: there it raises (ROADMAP item 6c)."""
+    require_one_process("open-loop serving (run_openloop)")
     rng = np.random.default_rng(args.seed)
     frontend, emb, h, store = build_frontend(args, rng, obs=obs)
     backend = frontend.backend

@@ -41,15 +41,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core import costmodel
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import LshEngine
-from repro_torch.core.runtime import IndexRuntime, require_one_process
+from repro_torch.core.runtime import IndexRuntime, process_world
 from repro_torch.obs.flight import QueryRecord
 from repro_torch.obs.trace import span_or_null
 from repro_torch.serve.qcache import QueryCache
@@ -188,6 +190,12 @@ class RuntimeBackend:
     self id is filtered host-side, the churn drivers' convention.
     `dropped_probes` from the capacitated router flows through to the
     telemetry (structurally 0 on one node).
+
+    In a world of several processes (a `ProcessZoneMesh` runtime, or any
+    runtime under a process group) every rank runs its frontend and must
+    dispatch the same batches in the same order; each dispatch checks
+    that across the ranks first and raises `RuntimeError` where they
+    differ.
     """
 
     def __init__(self, source, hyperplanes=None, store=None, corpus=None,
@@ -208,8 +216,6 @@ class RuntimeBackend:
         else:
             raise TypeError(f"expected LshEngine or IndexRuntime, got "
                             f"{type(source).__name__}")
-        require_one_process(runtime.mesh, "the serve frontend's mesh "
-                            "backend")
         if runtime.is_distributed and corpus is not None:
             raise ValueError("corpus scoring is 1-node only (mesh shards "
                              "embed payloads in their bucket slots)")
@@ -242,6 +248,7 @@ class RuntimeBackend:
         self.tracer = None
         self._exact_vecs: np.ndarray | None = None
         self._bind()
+        self._settle_cost()
 
     def _bind(self) -> None:
         """(Re)bind the dispatch to the CURRENT runtime.
@@ -399,6 +406,37 @@ class RuntimeBackend:
             self._bind()
         self._generation = max(int(self._store.generation),
                                self._generation + 1)
+        self._settle_cost()
+
+    def _settle_cost(self) -> None:
+        """On a process mesh of several ranks, read the store's occupancy
+        (a collective) now, at install time, which every rank reaches in
+        one order, and not at reap time, which it may not."""
+        mesh = self._rt.mesh
+        if mesh is not None and mesh.world > 1:
+            self.cost()
+
+    def _batch_guard(self, q_pad: np.ndarray, ex_pad: np.ndarray,
+                     m: int) -> None:
+        """In a world of several processes every rank must dispatch the
+        same batch: all-gather (rows, m, a checksum of the query bytes,
+        one of the excludes) and raise on a mismatch, before any step
+        collective can hang or answer for another batch."""
+        world = process_world()
+        if world == 1:
+            return
+        mine = torch.tensor(
+            [q_pad.shape[0], m, zlib.crc32(np.ascontiguousarray(q_pad)),
+             zlib.crc32(np.ascontiguousarray(ex_pad))], dtype=torch.int64,
+            device=self.device)
+        every = mine.new_empty(world * mine.numel())
+        tdist.all_gather_into_tensor(every, mine)
+        every = every.reshape(world, -1).cpu()
+        if not bool((every == every[0]).all()):
+            raise RuntimeError(
+                f"ranks dispatch different batches (rows, m, query and "
+                f"exclude checksums by rank: {every.tolist()}): every rank "
+                "must form the same batches in the same order")
 
     def _put(self, x: np.ndarray, dtype) -> torch.Tensor:
         """A private device copy of a host array: on the card through
@@ -429,7 +467,7 @@ class RuntimeBackend:
         """Table-1 closed form at the current store occupancy (cached per
         generation — occupancy only changes when the store does)."""
         if self._cost_gen != self._generation:
-            b = float(self._store.occupancy().double().mean())
+            b = self._rt.mean_occupancy(self._store)
             c = self._rt.cfg
             self._cost = costmodel.table1(
                 c.variant, c.params.k, c.params.L, b
@@ -451,6 +489,7 @@ class RuntimeBackend:
         batches in flight."""
         distributed = self._rt.is_distributed
         pad = int(q_pad.shape[0])
+        self._batch_guard(q_pad, ex_pad, m)
         with span_or_null(self.tracer, "serve/stage", pad=pad):
             if distributed and m > self.max_m:
                 raise ValueError(

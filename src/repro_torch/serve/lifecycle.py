@@ -12,9 +12,11 @@ store generation, never across a mutation, and recall under live churn
 matches the reference trajectory (`core.churn.run_churn`) exactly.
 
 Every driver runs on `device` (the CUDA card unless "cpu") over the
-trajectory of `core.churn` (the JAX package's numpy RNG stream), with the
-port's own hyperplanes unless `hyperplanes=` passes others (the
-reference's, to compare trajectories).  On the card the serving engines
+trajectory of `core.churn` (the JAX package's numpy RNG stream); in a
+world of several processes every rank runs it alike, and the writer
+runs inline (`ChurnWriter`).  The drivers use the port's own
+hyperplanes unless `hyperplanes=` passes others (the reference's, to
+compare trajectories).  On the card the serving engines
 and runtimes take their kernels (`use_kernels`): simhash and bucket_topk
 behind the engine, fused_query in every owner stage, bucket_topk in the
 replicated mesh's cache stage.
@@ -187,8 +189,10 @@ def run_serve_reshard(cfg: ServeChurnConfig, mesh=None, obs=None, *,
 
     One long-lived `RetrievalFrontend` over a payload-carrying store; the
     backend alternates between the 1-node runtime and a 1-node zone mesh
-    (`make_zone_mesh(1)`, the routed step) — the two execution contexts
-    of one node — via `runtime.reshard` + `frontend.update_backend`.
+    (`make_zone_mesh(1)`, the routed step; in a world of several
+    processes, on rank 0, the others receiving its results) — the two
+    execution contexts of one node — via `runtime.reshard` +
+    `frontend.update_backend`.
     Each read epoch serves its query batch three times: before the swap,
     right after it (every cached entry must be stale — the generation
     bump — and the recomputed ids must be IDENTICAL, the reshard
@@ -299,7 +303,8 @@ def run_serve_failure(cfg: ServeFailureConfig, mesh=None, obs=None, *,
     and revives under it.
 
     The backend is a replicated mesh runtime (`make_churn_runtime` with
-    R > 1, its n nodes on one device); every write epoch re-announces,
+    R > 1, its n nodes on one device, or over the processes of the
+    world, each rank running this driver); every write epoch re-announces,
     refreshes the NB cache, re-replicates (`IndexRuntime.
     replicate_store`, bytes charged via the Sec. 10 closed form), and
     installs the lot through `frontend.update_backend`.  At `kill_epoch`
@@ -335,8 +340,8 @@ def run_serve_failure(cfg: ServeFailureConfig, mesh=None, obs=None, *,
     if dev.type == "cuda":  # the cache stage through bucket_topk
         rt = IndexRuntime(dataclasses.replace(rt.cfg, use_kernels=True),
                           mesh=mesh)
-    store = make_store(c.L, params.num_buckets, c.capacity,
-                       payload_dim=c.dim, device=dev)
+    store = rt.shard_store(make_store(c.L, params.num_buckets, c.capacity,
+                                      payload_dim=c.dim, device=dev))
     live = np.ones((cfg.n_nodes,), np.int32)
     replicas = rt.replicate_store(store)
     nbcache = rt.refresh_cache(store)

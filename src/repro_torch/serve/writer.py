@@ -11,7 +11,9 @@ thread at a well-defined point.
 
 `ChurnWriter` splits them exactly there: `submit(prep_fn)` hands the
 heavy half to a daemon worker thread (`inline=True` runs it on the spot —
-the deterministic mode the equivalence tests use); the worker queues the
+the deterministic mode the equivalence tests use, and the only one in a
+world of several processes, where a prep's collectives must keep the
+serving thread's order on every rank); the worker queues the
 prepared update kwargs; and the frontend drains that queue through
 `install` at every STAGE BOUNDARY — immediately before a new batch is
 dispatched, never while one is being assembled.  In-flight batches are
@@ -52,6 +54,8 @@ from collections import deque
 
 import torch
 
+from repro_torch.core.runtime import process_world, require_one_process
+
 
 def _tensors(x):
     """Every tensor in an update's value: tensors, tuples / lists of
@@ -74,9 +78,17 @@ class ChurnWriter:
     epoch's store sees it completed.  `prepared`/`installed` count the
     two halves; `drain()` blocks until every submitted job is prepared
     AND installed (the end-of-run / deterministic-test barrier).
+
+    `inline=None` (the default) runs inline in a world of several
+    processes and on the worker thread otherwise; `inline=False` there
+    raises (ROADMAP item 6c).
     """
 
-    def __init__(self, frontend, *, inline: bool = False):
+    def __init__(self, frontend, *, inline: bool | None = None):
+        if inline is None:
+            inline = process_world() > 1
+        if not inline:
+            require_one_process("the asynchronous churn writer")
         self._frontend = frontend
         self._inline = inline
         self._ready: deque = deque()  # (kwargs, event or None), in order

@@ -5,7 +5,8 @@ with no host sync, the churn writer's stream handoff, a batch in
 flight across an update; the LM serving path: the SMOKE models on
 the card against the CPU, a decode loop with no host sync, and the
 index kernels at gemma2-2b's width (D = 2304); and the process mesh
-over NCCL at the one card's world size of 1.
+over NCCL at the one card's world size of 1: its collectives, a search,
+and replicated reads, `kill_node` and a reshard round trip.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc, and skip with a reason
 where `torch.cuda.is_available()` is false.  On the card:
@@ -849,3 +850,57 @@ def test_process_mesh_hamming_cnb_search_on_card(dev, nccl_world):
     assert torch.equal(i1, i2) and torch.equal(s1, s2)
     assert torch.equal(h1, h2) and st1 == st2 and hs1 == hs2
     assert st1["dropped_probes"] == 0
+
+
+@pytest.mark.parametrize("mode", ["first", "quorum"])
+def test_process_mesh_replicas_kills_and_reshard_on_card(dev, nccl_world,
+                                                        mode):
+    """On the NCCL process mesh at world 1: a replicated search and
+    contains (R = 2, 4 nodes, node 1 killed), `kill_node`'s store and
+    replica slices, and a 4 -> 2 -> 4 reshard equal the one-process
+    mesh's exactly, through the fused kernels."""
+    from repro_torch.core.runtime import (IndexRuntime, RuntimeConfig,
+                                          kill_node, reshard)
+
+    n_users, d, k, L, c, nq = 20000, 64, 8, 3, 128, 512
+    g = torch.Generator().manual_seed(22)
+    x = torch.nn.functional.normalize(torch.randn((n_users, d), generator=g),
+                                      dim=-1).to(dev)
+    params = hashing.LshParams(d=d, k=k, L=L, seed=22)
+    h = hashing.make_hyperplanes(params, device=dev)
+    store = build_store_host(hashing.sketch_codes(x, h), params.num_buckets,
+                             c, payload=x, device=dev)
+    cfg = RuntimeConfig(params=params, n_nodes=4, m=10, variant="cnb",
+                        cap_factor=4.0, replication=2, read_mode=mode)
+    live = [1, 0, 1, 1]
+    outs = []
+    for mesh, two in ((nccl_world.ZoneMesh(4, 1, dev),
+                       nccl_world.ZoneMesh(2, 1, dev)),
+                      (nccl_world.make_zone_mesh(4, device=dev),
+                       nccl_world.make_zone_mesh(2, device=dev))):
+        rt = IndexRuntime(cfg, mesh=mesh)
+        st = rt.shard_store(store)
+        reps = rt.replicate_store(st)
+        cache = rt.refresh_cache(st)
+        st_k, reps_k = kill_node(rt, st, reps, 1)
+        ops.reset_launches()
+        ids, sc, stats = rt.search(h, st_k, x[:nq], cache=cache,
+                                   replicas=reps_k, live=live)
+        hits, hstats = rt.contains(h, st_k, x[:nq], torch.arange(nq),
+                                   cache=cache, replicas=reps_k, live=live)
+        assert ops.LAUNCHES["fused_query"] >= 1
+        assert ops.LAUNCHES["fused_contains"] >= 1
+        plain = dataclasses.replace(cfg, replication=1)
+        rt_p = IndexRuntime(plain, mesh=mesh)
+        rt2, st2, ev2 = reshard(rt_p, st, 2, mesh=two, cap_factor=2.0)
+        rt4, st4, ev4 = reshard(rt2, st2, runtime=rt_p)
+        ids4, sc4, stats4 = rt4.search(h, st4, x[:nq],
+                                       cache=rt4.refresh_cache(st4))
+        outs.append((ids, sc, stats.host(), hits, hstats.host(),
+                     st_k.ids, st_k.payload, st_k.generation, *reps_k,
+                     ev2, ev4, ids4, sc4, stats4.host(), st4.ids))
+    assert isinstance(nccl_world.make_zone_mesh(4, device=dev),
+                      nccl_world.ProcessZoneMesh)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    assert outs[0][2]["dropped_probes"] == 0

@@ -22,8 +22,9 @@ Held, bit for bit (ids, scores of both kinds, contains hits, every
     JAX's floats; the one-process mesh is held to them the same way);
   * `BlockCollectives` against `MeshCollectives` on random tensors at
     worlds 2 and 4, for every method;
-  * the mesh helpers, and the example `examples/torch_distributed_search.
-    py` under torchrun with 2 gloo ranks against the one-process mesh.
+  * the mesh helpers, `kill_node` and `reshard` on one node a rank, and
+    the example `examples/torch_distributed_search.py` under torchrun
+    with 2 gloo ranks against the one-process mesh.
 
 The goldens' and EQUIV's hyperplanes are drawn with JAX's
 `threefry_partitionable` off, the mode the goldens were drawn in.
@@ -378,35 +379,21 @@ def test_mesh_helpers_in_a_world(runs, world):
         assert "torchrun --nproc-per-node 256" in str(out["raises/production"])
         assert "does not split" in str(out["raises/too_wide"])
         assert "runs over nccl" in str(out["raises/nccl"])
-        for what in ("kill_node", "reshard"):
-            assert "ROADMAP item 6b" in str(out[f"raises/{what}"])
+        # kill_node and reshard on one node a rank: node 0's zone blanked
+        # on rank 0 alone, the generation bumped on every rank, the input
+        # kept; the reshard to the same count moves nothing
+        w = 16 // world
+        mine = np.arange(rank * w * 2, (rank + 1) * w * 2).reshape(1, w, 2)
+        np.testing.assert_array_equal(out["kill_node/input_ids"], mine)
+        np.testing.assert_array_equal(out["kill_node/ids"],
+                                      -np.ones_like(mine) if rank == 0
+                                      else mine)
+        np.testing.assert_array_equal(out["reshard/ids"], mine)
+        assert int(out["kill_node/gen"]) == int(out["reshard/gen"]) == 1
+        assert out["reshard/event"].tolist() == [world, world, 0, 0]
         # every data-2 mesh (host, pod, two zone meshes) shares one set
         # of row groups
         assert out["rows/shared"].all()
-
-
-def test_item_6b_paths_refuse_a_multiprocess_mesh():
-    """Replication, churn and serving check the mesh before any work."""
-    from repro_torch.core import churn, distributed
-    from repro_torch.core.hashing import LshParams
-    from repro_torch.core.runtime import RuntimeConfig, require_one_process
-
-    fake = mesh_mod.ProcessZoneMesh(4, 1, torch.device("cpu"), 0, 2)
-    assert fake.n_loc == 2
-    cfg = RuntimeConfig(params=LshParams(d=8, k=4, L=1), n_nodes=4,
-                        replication=2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        distributed.make_replicate_store(cfg, fake)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        distributed.make_search_step(cfg, fake)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        distributed.make_contains_step(cfg, fake)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        churn.make_churn_runtime(churn.ChurnConfig(), 4, mesh=fake)
-    one = mesh_mod.ProcessZoneMesh(4, 1, torch.device("cpu"), 0, 1)
-    require_one_process(one, "a world of one")
-    require_one_process(mesh_mod.ZoneMesh(4, 1, torch.device("cpu")),
-                        "one process")
 
 
 # -- the example under torchrun -------------------------------------------

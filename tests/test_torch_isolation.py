@@ -90,3 +90,37 @@ def test_process_mesh_and_its_example_import_without_jax():
         capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] []"
+
+
+P2P_PROBE = textwrap.dedent("""
+    import importlib, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    for name in ("repro_torch.core.mesh", "repro_torch.core.runtime",
+                 "repro_torch.core.distributed", "repro_torch.core.churn",
+                 "repro_torch.serve.frontend", "repro_torch.serve.writer",
+                 "repro_torch.serve.lifecycle"):
+        importlib.import_module(name)
+    launch = sorted(n for n in sys.modules
+                    if n.startswith("repro_torch.launch"))
+    for name in ("repro_torch.launch.mesh", "repro_torch.launch.node_churn",
+                 "repro_torch.launch.failure_churn",
+                 "repro_torch.launch.serve_retrieval"):
+        importlib.import_module(name)
+    leaked = sorted(n for n in sys.modules
+                    if n == "repro" or n.startswith("repro."))
+    print(leaked, launch)
+""")
+
+
+def test_p2p_process_mesh_modules_import_without_jax():
+    """The modules the P2P dynamics and serving run on a process mesh
+    through (replicas, kills, reshards, the churn drivers and CLIs, the
+    serve backend, writer and lifecycles) load with jax unimportable and
+    pull in nothing of `repro`; the core and serve layers load nothing
+    of the launch layer."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", P2P_PROBE],
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] []"

@@ -1,4 +1,5 @@
-"""Gloo ranks for tests/test_torch_dist_mesh.py (not collected).
+"""Gloo ranks for tests/test_torch_dist_mesh.py and
+tests/test_torch_dist_p2p.py (not collected).
 
 `spawn(job, world, outdir, world_npz, **kw)` starts `world` processes
 with `torch.multiprocessing`, each initialising a gloo process group
@@ -12,7 +13,12 @@ The jobs:
   * `collectives`: every `BlockCollectives` method on random tensors,
     each rank's block of a node-leading tensor that the test holds
     against `MeshCollectives` on the whole of it; then the mesh
-    helpers' shapes and refusals inside the world.
+    helpers' shapes and refusals inside the world, and what `kill_node`
+    and `reshard` give on a mesh of one node a rank;
+  * `p2p`: the P2P cells of `p2p_cells` (replicated reads, kills, a
+    reshard round trip through the prefix meshes, the churn drivers,
+    the serve lifecycles and the refusals), the same function the test
+    runs in one process.
 
 This module imports torch and the port only, never jax, so that a
 spawned rank starts quickly.
@@ -20,8 +26,12 @@ spawned rank starts quickly.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import json
 import os
 import socket
+import time
 
 import numpy as np
 import torch
@@ -220,28 +230,350 @@ def _job_helpers(mesh_kw: dict) -> dict:
             out[f"raises/{what}"] = np.asarray("")
         except (RuntimeError, ValueError) as e:
             out[f"raises/{what}"] = np.asarray(str(e))
-    mesh = mesh_mod.make_zone_mesh(world, device="cpu")
+    # kill_node and reshard on a mesh of one node a rank: the store's ids
+    # are their slot numbers, so each rank's zone shows what it holds
     from repro_torch.core import runtime as runtime_mod
 
-    for what in ("kill_node", "reshard"):
-        try:
-            rt = IndexRuntime(RuntimeConfig(params=LshParams(d=8, k=4, L=1),
-                                            n_nodes=world), mesh=mesh)
-            if what == "kill_node":
-                runtime_mod.kill_node(rt, None, None, 0)
-            else:
-                runtime_mod.reshard(rt, None, world)
-            out[f"raises/{what}"] = np.asarray("")
-        except NotImplementedError as e:
-            out[f"raises/{what}"] = np.asarray(str(e))
+    rt = IndexRuntime(RuntimeConfig(params=LshParams(d=8, k=4, L=1),
+                                    n_nodes=world),
+                      mesh=mesh_mod.make_zone_mesh(world, device="cpu"))
+    st = rt.shard_store(numbered_store(16, 2, 8))
+    killed, _ = runtime_mod.kill_node(rt, st, None, 0)
+    out["kill_node/ids"] = killed.ids.numpy()
+    out["kill_node/gen"] = killed.generation.numpy()
+    out["kill_node/input_ids"] = st.ids.numpy()
+    _, moved, ev = runtime_mod.reshard(rt, st, world, mesh=rt.mesh)
+    out["reshard/ids"] = moved.ids.numpy()
+    out["reshard/gen"] = moved.generation.numpy()
+    out["reshard/event"] = np.asarray([ev.old_n, ev.new_n, ev.moved_buckets,
+                                       ev.handoff_bytes])
     return out
+
+
+def numbered_store(nb: int, c: int, d: int) -> BucketStore:
+    """A one-table store whose slot (b, j) holds id b*c + j."""
+    from repro_torch.core.store import make_store
+
+    st = make_store(1, nb, c, payload_dim=d, device="cpu")
+    st.ids = torch.arange(nb * c, dtype=torch.int32).reshape(1, nb, c)
+    return st
 
 
 def _job_collectives_and_helpers(mesh_kw: dict) -> dict:
     return {**_job_collectives(mesh_kw), **_job_helpers(mesh_kw)}
 
 
-JOBS = dict(cells=_job_cells, collectives=_job_collectives_and_helpers)
+# -- the P2P dynamics: replicas, kills, reshards, churn, serving -------------
+
+# (R, read mode, nodes killed before the reads), tests/test_torch_failure.py's
+REP_CELLS = [(2, "first", ()), (2, "first", (1,)), (2, "quorum", ()),
+             (2, "quorum", (1,)), (3, "first", (1, 2)), (3, "quorum", (2,))]
+# the time-based keys of a driver's result and of a serve summary
+TIMED = ("epoch_ms", "reference_epoch_ms", "p50_us", "p99_us",
+         "p50_queue_us", "p99_queue_us", "qps")
+
+
+def rep_tag(R: int, mode: str, dead: tuple, fused: str) -> str:
+    return f"R{R}-{mode}-dead{''.join(map(str, dead)) or 'none'}-{fused}"
+
+
+def save_p2p_world(path: str, params, h, store: BucketStore, q, targets,
+                   churn_hp) -> str:
+    """The goldens world of tests/test_torch_failure.py as `p2p` loads it,
+    with the JAX hyperplanes of the churn configuration."""
+    np.savez(path, params=np.asarray([params.d, params.k, params.L,
+                                      params.seed]),
+             h=h.numpy(), ids=store.ids.numpy(), ts=store.timestamps.numpy(),
+             ptr=store.write_ptr.numpy(), payload=store.payload.numpy(),
+             gen=store.generation.numpy(), q=q, targets=targets,
+             churn_hp=churn_hp)
+    return path
+
+
+def load_p2p_world(path: str) -> dict:
+    z = {k: torch.from_numpy(v) for k, v in np.load(path).items()}
+    d, k, L, seed = (int(v) for v in z["params"])
+    return dict(params=LshParams(d=d, k=k, L=L, seed=seed), h=z["h"],
+                store=BucketStore(z["ids"], z["ts"], z["ptr"], z["payload"],
+                                  z["gen"]),
+                q=z["q"], targets=z["targets"], churn_hp=z["churn_hp"])
+
+
+def _rep_cell(w: dict, mesh, R: int, mode: str, dead: tuple,
+              fused: str) -> dict:
+    """Replicate, kill `dead`, then search and contains on a 4-node mesh;
+    the replica slices are this rank's zones, the killed store is
+    gathered over the world."""
+    from repro_torch.core.runtime import gather_store, kill_node
+
+    rt = IndexRuntime(RuntimeConfig(params=w["params"], n_nodes=4, m=10,
+                                    variant="cnb", cap_factor=4.0,
+                                    replication=R, read_mode=mode,
+                                    fused=fused), mesh=mesh)
+    st0 = rt.shard_store(w["store"])
+    reps0 = rt.replicate_store(st0)
+    cache = rt.refresh_cache(st0)
+    out = dict(rep_ids=reps0[0].numpy(), rep_payload=reps0[1].numpy())
+    before = [t.clone() for t in (st0.ids, st0.payload, *reps0)]
+    st, reps, live = st0, reps0, np.ones(4, np.int32)
+    for node in dead:
+        st, reps = kill_node(rt, st, reps, node)
+        live[node] = 0
+    if dead:
+        g = gather_store(st, rt.mesh, rt.cfg.params.num_buckets)
+        out.update({f"killed_{f}": getattr(g, f).numpy() for f in (
+            "ids", "timestamps", "write_ptr", "payload", "generation")})
+        out.update(killed_rep_ids=reps[0].numpy(),
+                   killed_rep_payload=reps[1].numpy(),
+                   inputs_kept=np.asarray(all(torch.equal(a, b) for a, b in
+                                              zip(before, (st0.ids,
+                                                           st0.payload,
+                                                           *reps0)))))
+    q, h = w["q"], w["h"]
+    ids, sc, s = rt.search(h, st, q, cache=cache, replicas=reps, live=live)
+    hits, hs = rt.contains(h, st, q, w["targets"], cache=cache,
+                           replicas=reps, live=live)
+    out.update(ids=ids.numpy(), scores=sc.numpy(), stats=_stats(s),
+               hits=hits.numpy(), hstats=_stats(hs))
+    return out
+
+
+def _reshard_trip(w: dict, mesh_for) -> dict:
+    """1 -> 2 -> 4 -> 2 -> 1 nodes on the goldens world: a search at each
+    stop (the 1-node ones with each query's own id excluded), the
+    events, and the store back on one node."""
+    from repro_torch.core.runtime import reshard
+
+    h, q = w["h"], w["q"]
+    ex = torch.arange(q.shape[0], dtype=torch.int32)
+    rt1 = IndexRuntime(RuntimeConfig(params=w["params"], variant="cnb", m=10,
+                                     cap_factor=float(w["params"].L)),
+                       device="cpu")
+    out, events = {}, []
+
+    def search(tag, rt, st):
+        if rt.mesh is None:
+            ids, sc, s = rt.search(h, st, q, exclude=ex)
+        else:
+            ids, sc, s = rt.search(h, st, q, cache=rt.refresh_cache(st))
+        out.update({f"{tag}/ids": ids.numpy(), f"{tag}/scores": sc.numpy(),
+                    f"{tag}/stats": _stats(s),
+                    f"{tag}/generation": st.generation.numpy()})
+
+    st = w["store"]
+    search("rs1", rt1, st)
+    rt2, st, ev = reshard(rt1, st, 2, mesh=mesh_for(2))
+    events.append(ev)
+    search("rs2", rt2, st)
+    out["mesh2/holds"] = np.asarray([rt2.mesh.active, st.ids.shape[1]])
+    rt4, st, ev = reshard(rt2, st, 4, mesh=mesh_for(4), cap_factor=4.0)
+    events.append(ev)
+    search("rs4", rt4, st)
+    rt2b, st, ev = reshard(rt4, st, runtime=rt2)
+    events.append(ev)
+    search("rs2b", rt2b, st)
+    rt1b, st, ev = reshard(rt2b, st, 1)
+    events.append(ev)
+    search("rs1b", rt1b, st)
+    out.update({f"rs1b/store_{f}": getattr(st, f).numpy() for f in (
+        "ids", "timestamps", "write_ptr", "payload")})
+    out["events"] = np.asarray([[e.old_n, e.new_n, e.moved_buckets,
+                                 e.handoff_bytes] for e in events])
+    out["rs1b/on_one_node"] = np.asarray(rt1b.mesh is None)
+    return out
+
+
+def _prefix_rows(w: dict, data: int) -> dict:
+    """`data` rows of one node, on a prefix of `data` ranks of a process
+    world: search, contains, an insert and an expire."""
+    rt = IndexRuntime(RuntimeConfig(params=w["params"], n_nodes=1, m=10,
+                                    variant="cnb", cap_factor=2.0),
+                      mesh=mesh_mod.make_zone_mesh(1, data, device="cpu"))
+    st = rt.shard_store(w["store"])
+    q, h = w["q"], w["h"]
+    ids, sc, s = rt.search(h, st, q)
+    hits, hs = rt.contains(h, st, q, w["targets"])
+    st = rt.insert(h, st, q, torch.arange(q.shape[0], dtype=torch.int32), 7)
+    st = rt.expire(st, 9, ttl=5)
+    after, _, _ = rt.search(h, st, q)
+    return {"prefix/ids": ids.numpy(), "prefix/scores": sc.numpy(),
+            "prefix/stats": _stats(s), "prefix/hits": hits.numpy(),
+            "prefix/hstats": _stats(hs), "prefix/after_ids": after.numpy(),
+            "prefix/generation": st.generation.numpy(),
+            "prefix_holds": np.asarray([rt.mesh.active, st.ids.shape[1]])}
+
+
+def flat_result(tag: str, res: dict, out: dict, obs=None) -> None:
+    """A driver's result dict (and its obs) as npz arrays under `tag`;
+    times left out."""
+    for k, v in res.items():
+        if k in TIMED or k == "stats":
+            continue
+        if k == "reshard_events":
+            v = np.asarray([[e.old_n, e.new_n, e.moved_buckets,
+                             e.handoff_bytes] for e in v]).reshape(-1, 4)
+        elif k in ("recoveries", "kills"):
+            v = np.asarray(v).reshape(-1, 3 if k == "recoveries" else 2)
+        elif k == "summary":
+            v = json.dumps({n: x for n, x in v.items() if n not in TIMED},
+                           sort_keys=True)
+        out[f"{tag}/{k}"] = np.asarray(v)
+    if obs is not None:
+        def rec(r):
+            d = dataclasses.asdict(r)
+            return {n: x for n, x in d.items()
+                    if n not in ("t_us", "latency_us", "stage_us")}
+
+        out[f"{tag}/flight"] = np.asarray(json.dumps(
+            [rec(r) for r in obs.flight.records()], sort_keys=True))
+        out[f"{tag}/dumps"] = np.asarray(json.dumps(
+            [(d["reason"], d["detail"], d["n_records"])
+             for d in obs.flight.dumps], sort_keys=True))
+        out[f"{tag}/registry"] = np.asarray(json.dumps(
+            obs.registry.snapshot(), sort_keys=True))
+
+
+def _churn_cells(w: dict, churn_cfg: dict) -> dict:
+    from repro_torch.core.churn import (
+        ChurnConfig, FailureChurnConfig, NodeChurnConfig, run_churn_distributed,
+        run_failure_churn, run_node_churn)
+    from repro_torch.obs import Observability
+
+    cfg, hp, out = ChurnConfig(**churn_cfg), w["churn_hp"], {}
+    for mode in ("first", "quorum"):
+        obs = Observability()
+        flat_result(f"failure-{mode}", run_failure_churn(FailureChurnConfig(
+            churn=cfg, n_nodes=4, replication=2, read_mode=mode,
+            kills=((3, 1),)), obs=obs, device="cpu", hyperplanes=hp), out, obs)
+    obs = Observability()
+    flat_result("node", run_node_churn(NodeChurnConfig(
+        churn=cfg, schedule=(1, 2, 4, 2, 1)), obs=obs, device="cpu",
+        hyperplanes=hp), out, obs)
+    flat_result("dist2", run_churn_distributed(cfg, n_shards=2, device="cpu",
+                                               hyperplanes=hp), out)
+    return out
+
+
+@contextlib.contextmanager
+def served_ids():
+    """The ids of every `RetrievalFrontend.search` inside the block."""
+    from repro_torch.serve import RetrievalFrontend
+
+    got, real = [], RetrievalFrontend.search
+
+    def spy(self, *a, **kw):
+        res = real(self, *a, **kw)
+        got.append(res[0])
+        return res
+
+    RetrievalFrontend.search = spy
+    try:
+        yield got
+    finally:
+        RetrievalFrontend.search = real
+
+
+def _serve_cells(serve_cfg: dict) -> dict:
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.serve import (
+        ServeChurnConfig, ServeFailureConfig, run_serve_churn,
+        run_serve_failure, run_serve_reshard)
+
+    out = {}
+    runs = dict(
+        failure=lambda: run_serve_failure(ServeFailureConfig(
+            churn=ChurnConfig(**serve_cfg["failure"]), n_nodes=4,
+            replication=2), device="cpu"),
+        reshard=lambda: run_serve_reshard(ServeChurnConfig(
+            churn=ChurnConfig(**serve_cfg["churn"]), query_repeats=2,
+            max_batch=16, queue_capacity=64), device="cpu"),
+        writer=lambda: run_serve_churn(ServeChurnConfig(
+            churn=ChurnConfig(**serve_cfg["churn"]), query_repeats=2,
+            max_batch=16, queue_capacity=64, use_writer=True),
+            device="cpu"))
+    for tag, run in runs.items():
+        with served_ids() as ids:
+            flat_result(f"serve-{tag}", run(), out)
+        out[f"serve-{tag}/ids"] = np.concatenate(ids)
+    return out
+
+
+def _guard_and_refusals(w: dict) -> dict:
+    """A rank fed another batch makes the dispatch guard raise on every
+    rank; open-loop serving and an asynchronous writer refuse a world of
+    several processes."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import serve_retrieval
+    from repro_torch.serve import RuntimeBackend
+    from repro_torch.serve.writer import ChurnWriter
+
+    out = {}
+    rt = IndexRuntime(RuntimeConfig(params=w["params"], n_nodes=4, m=11,
+                                    cap_factor=4.0),
+                      mesh=mesh_mod.make_zone_mesh(4, device="cpu"))
+    st = rt.shard_store(w["store"])
+    backend = RuntimeBackend(rt, hyperplanes=w["h"], store=st,
+                             cache=rt.refresh_cache(st))
+    q = w["q"][:8].numpy().copy()
+    ex = np.arange(8, dtype=np.int32)
+    ids, _, _ = backend.dispatch(q, ex, 10)  # the same batch: served
+    out["guard/same_ids"] = ids
+    if dist.get_rank() == dist.get_world_size() - 1:
+        q = q[::-1].copy()
+    for what, fn in (
+            ("guard", lambda: backend.dispatch(q, ex, 10)),
+            ("openloop", lambda: serve_retrieval.run_openloop(
+                SimpleNamespace(seed=0))),
+            ("writer", lambda: ChurnWriter(None, inline=False))):
+        try:
+            fn()
+            out[f"raises/{what}"] = np.asarray("")
+        except (RuntimeError, NotImplementedError) as e:
+            out[f"raises/{what}"] = np.asarray(f"{type(e).__name__}: {e}")
+    return out
+
+
+def p2p_cells(w: dict, parts, data: int = 1, churn_cfg=None,
+              serve_cfg=None) -> dict:
+    """The P2P cells of `parts` on meshes from `make_zone_mesh`: the
+    one-process meshes without a process group, this rank's process
+    meshes under one."""
+    def mesh_for(n):
+        return mesh_mod.make_zone_mesh(n, data, device="cpu")
+
+    out = {}
+    if "rep" in parts:
+        mesh = mesh_for(4)
+        out["place"] = np.asarray(
+            [getattr(mesh, "row", 0), getattr(mesh, "block", 0),
+             getattr(mesh, "n_loc", 4)])
+        for R, mode, dead in REP_CELLS:
+            for fused in ("off", "on"):
+                tag = rep_tag(R, mode, dead, fused)
+                for k, v in _rep_cell(w, mesh, R, mode, dead, fused).items():
+                    out[f"{tag}/{k}"] = v
+    if "prefix" in parts:
+        out.update(_prefix_rows(w, data))
+    if "reshard" in parts:
+        out.update(_reshard_trip(w, mesh_for))
+    if "churn" in parts:
+        out.update(_churn_cells(w, churn_cfg))
+    if "serve" in parts:
+        out.update(_serve_cells(serve_cfg))
+    if "guard" in parts:
+        out.update(_guard_and_refusals(w))
+    return out
+
+
+def _job_p2p(kw: dict) -> dict:
+    return p2p_cells(load_p2p_world(kw["world_npz"]), kw["parts"],
+                     kw.get("data", 1), kw.get("churn_cfg"),
+                     kw.get("serve_cfg"))
+
+
+JOBS = dict(cells=_job_cells, collectives=_job_collectives_and_helpers,
+            p2p=_job_p2p)
 
 
 def _entry(rank: int, world: int, port: int, job: str, outdir: str,
@@ -263,10 +595,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(job: str, world: int, outdir: str, **kw) -> list[dict]:
+def spawn(job: str, world: int, outdir: str, timeout: float = 600,
+          **kw) -> list[dict]:
     """Run `job` on `world` gloo ranks; each rank's outputs, in rank
-    order."""
-    mp.spawn(_entry, args=(world, free_port(), job, outdir, kw),
-             nprocs=world, join=True)
+    order.  The ranks are killed, and TimeoutError raised, if they have
+    not all ended within `timeout` seconds."""
+    ctx = mp.spawn(_entry, args=(world, free_port(), job, outdir, kw),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{job} on {world} ranks: not done in "
+                               f"{timeout} s")
     return [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
             for r in range(world)]
