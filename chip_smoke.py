@@ -26,6 +26,14 @@ failure:
      and its times at the OSN widths: 8192 densified users of the
      LIVEJOURNAL_S (d = 24 576, k = 11) and FRIENDSTER_S (d = 49 152,
      k = 12) shapes;
+  4b. [autotune] (`repro_torch.kernels.autotune`): with the cache pointed
+     at an empty scratch file, every grid at phase 4's shapes equals the
+     modules' constant grid; a bounded sweep into that file (every
+     candidate held against its plain version, each median printed);
+     each op's winner timed again against the default, failing where it
+     is slower by more than max(5 %, the default's own range); then the
+     committed cache's kind and entries, on which every later phase
+     launches;
   5. runtime search through `IndexRuntime(use_kernels=True)`, dot and
      hamming, for lsh / nb / cnb and ranked cnb: ms per batch, queries/s,
      self-hit@1 and recall@10 against brute-force top-10; each cell
@@ -116,8 +124,23 @@ failure:
      Their launches add into one path, `p2p_procs`, which must launch
      fused_query, fused_contains, and bucket_topk or hamming_words,
      each held against plain on inputs recorded from one read-epoch
-     batch (bucket_topk: one serving batch); the process group is
-     destroyed at the end of the phase;
+     batch (bucket_topk: one serving batch); then, on the same group,
+     item 6c (path `serve_procs`):
+     `serve_retrieval.run_openloop` on serve_closed's world under the
+     controller rank (rank 0 announces every batch, `repro_torch.serve.
+     control`), `run_serve_churn` through the threaded writer (recalls
+     equal to phase 11's `run_churn`, ids equal to serve_lifecycle's
+     writer run), and a threaded writer whose preps run a 4-node cnb
+     mesh's insert, expire and cache refresh over the writer's own NCCL
+     group while the controller serves; one stage under the controller
+     makes no host sync (sync-debug mode "error"); simhash and
+     bucket_topk (open loop) and fused_query (writer) held against plain
+     on one batch of each backend; after the group is destroyed, each
+     recorded event stream replayed in one process gives the served ids
+     exactly through the kernels, and up to near ties (scores within
+     TIE) through the plain versions on the same stores; ms per batch
+     beside the one-process cells'; the process group is destroyed at
+     the end of the phase;
  12. serving (`repro_torch.serve`), every cell's launches on one path
      `serve`, each cell with its wall time and peak device memory:
      serve_mesh (in phase 9, on its 16-node hamming cnb mesh: 1024
@@ -172,7 +195,15 @@ failure:
      plain path, contains of each query's own id, failing on a miss;
      simhash, bucket_topk, fused_query and fused_contains held against
      plain on the inputs the path recorded);
- 13. the kernels line.  Each path of phases 5-12 and 14 runs with the
+ 15. [examples] (path `examples`): `examples/torch_quickstart.py` and
+     `examples/torch_retrieval_serve.py` run on the card and on the CPU
+     (`run(device=...)`), their printed tables equal up to the near-tie
+     rule of tests/torch_parity_rules.py (retrieval_serve's p99 latency
+     aside), retrieval_serve's served ids the CPU's up to near ties, its
+     simhash and bucket_topk held against plain on the inputs the card's
+     run gives them, and quickstart's cnb spends lsh's messages for a
+     higher recall@10;
+ 13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
      should go through was launched; a kernel's `launches` is the sum
@@ -192,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -199,6 +231,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -210,7 +243,6 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense, tensor cores
 TIE = 1e-5                  # dot-score tolerance and near-tie width
-SPIN_CYCLES = 20_000_000    # ~10 ms of sleep kernel ahead of a timed call
 
 
 def log(*a):
@@ -219,23 +251,14 @@ def log(*a):
 
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of one call of `fn` over `reps` calls, after one
-    warm-up.  Each call has its own event pair, enqueued while the card
-    spins on a ~10 ms sleep kernel: the host's launch pace (Python,
-    ctypes, allocation) then falls before the start event is reached,
-    and only device time lies between the two events."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+    warm-up (`repro_torch.kernels.autotune.rep_ms`).  Each call has its
+    own event pair, enqueued while the card spins on a ~10 ms sleep
+    kernel: the host's launch pace (Python, ctypes, allocation) then
+    falls before the start event is reached, and only device time lies
+    between the two events."""
+    from repro_torch.kernels.autotune import rep_ms
+
+    return float(np.mean(rep_ms(fn, reps)))
 
 
 def host_us(torch, fn, reps: int = 2000) -> float:
@@ -273,10 +296,12 @@ def bound(nbytes: float, flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_batch(torch, path: str, fn, top: int = 10):
+def profile_batch(torch, path: str, fn, top: int = 10, warmup: int = 0):
     """Trace one call of `fn` with torch.profiler and print the device-side
     rows (kernels and copies, the top `top` by time), their total against
     the host-clock wall time (the busy share), and each row's count.
+    With `warmup`, that many calls run under the profiler first (its
+    warm-up steps, not recorded) and the next one is traced.
 
     GPU user-annotation rows (NCCL's `nccl:<op>` among them) span the
     kernels and copies they wrap, so they are left out of the busy time
@@ -285,8 +310,14 @@ def profile_batch(torch, path: str, fn, top: int = 10):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    sched = (torch.profiler.schedule(wait=0, warmup=warmup, active=1)
+             if warmup else None)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -893,6 +924,75 @@ def main() -> int:
         max_abs_err=0.0, ms=h1_ms, plain_ms=h1_plain, bound_ms=h1_b,
         bound_by=h1_by, library_ms=None)
     del cand_ids, sq, sc1, got
+
+    # -- 4b. [autotune]: the grid cache and a bounded sweep -----------------
+    from repro_torch.kernels import autotune
+
+    at_wall = time.perf_counter()
+    kind = autotune.device_kind(dev)
+    env_key = "REPRO_TORCH_AUTOTUNE_CACHE"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[env_key] = os.path.join(tmp, "autotune_cache.json")
+        autotune._load.cache_clear()
+        try:
+            # an empty cache: the constants' grids at phase 4's shapes
+            tuned = {op: autotune.get(op, kind)
+                     for op in autotune.DEFAULTS["*"]}
+            if tuned != autotune.DEFAULTS["*"]:
+                raise AssertionError(f"autotune: an empty cache gives "
+                                     f"{tuned}")
+            ts, tb, tc = (tuned[op] for op in ("simhash", "bucket_topk",
+                                               "fused_contains"))
+            grids = [(sh_mod.grid(*a, sms, ts["warp_rows_per_sm"],
+                                  ts["stream_groups"]),
+                      sh_mod.grid(*a, sms, sh_mod.WARP_ROWS_PER_SM,
+                                  sh_mod.STREAM_GROUPS))
+                     for a in ((NQ, D, K, L, False), (NQ, D, K, L, True),
+                               (N, D, K, L, False),
+                               (8192, 24_576, 11, L, False),
+                               (8192, 49_152, 12, L, False))]
+            grids.append((bt_mod.grid(bq, kc, M, sms, tb["parts_per_sm"]),
+                          bt_mod.grid(bq, kc, M, sms, bt_mod.PARTS_PER_SM)))
+            grids.append((fq_mod.contains_grid(r, sms, tc["max_rows"]),
+                          fq_mod.contains_grid(r, sms,
+                                               fq_mod.CONTAINS_MAX_ROWS)))
+            if any(a != b for a, b in grids):
+                raise AssertionError(f"autotune: an empty cache changes a "
+                                     f"grid: {grids}")
+            log(f"[autotune] an empty cache on {kind}: the constants' "
+                f"grids at phase 4's shapes ({len(grids)} grids equal)")
+            # a bounded sweep into the scratch file; every candidate is
+            # held against its plain version inside the sweep
+            swept = autotune.sweep(reps=15, device=dev, log=log)
+            for op, res in swept.items():
+                # the winner timed again against the default
+                d_m, d_r = autotune.time_params(res["cases"], res["default"],
+                                                15)
+                w_m, w_r = autotune.time_params(res["cases"], res["winner"],
+                                                15)
+                margin = max(0.05 * sum(d_m), sum(d_r))
+                log(f"[autotune] {op}: winner {res['winner']} re-timed "
+                    f"{sum(w_m):.4f} ms (ranges {sum(w_r):.4f}) against the "
+                    f"default {res['default']} {sum(d_m):.4f} ms (ranges "
+                    f"{sum(d_r):.4f}); recorded in the scratch file: "
+                    f"{res['put']}")
+                if sum(w_m) - sum(d_m) > margin:
+                    raise AssertionError(
+                        f"autotune {op}: the winner {res['winner']} is "
+                        f"slower than the default by more than {margin:.4f}"
+                        " ms")
+            del swept, res
+        finally:
+            del os.environ[env_key]
+            autotune._load.cache_clear()
+    committed = autotune._load(str(autotune.cache_path())).get(kind, {})
+    log(f"[autotune] the committed cache {autotune.cache_path().name} on "
+        f"{kind}: {committed or 'no entry'}; every later phase launches on "
+        f"{ {op: autotune.get(op, kind) for op in autotune.DEFAULTS['*']} }"
+        f"; phase in {time.perf_counter() - at_wall:.1f} s")
+    for name, op in (("simhash", "simhash"), ("bucket_topk", "bucket_topk"),
+                     ("fused_contains", "fused_contains")):
+        kernels[name]["tuned"] = autotune.get(op, kind)
 
     def recorded_inputs(fn, names):
         """Run `fn` once with the wrappers `names` of `ops` recording the
@@ -1694,6 +1794,7 @@ def main() -> int:
             f"stage made no host sync (sync-debug mode 'error'); most "
             f"batches in flight at once: depth 1 {most[1]}, depth 4 "
             f"{most[4]}")
+        open_one_ms = 1e3 * a.max_batch / ol["capacity"]
         del seen_o, rec_o, pending
 
     # -- 10. the paper's workload: LIVEJOURNAL_S, sparse interest vectors --
@@ -2096,11 +2197,15 @@ def main() -> int:
             # world, the ground truth and the write epochs)
             obs_sc = Observability() if depth == 1 else None
             t0 = time.perf_counter()
-            sc_out = counted("serve", ("simhash", "bucket_topk"),
-                             lambda: run_serve_churn(ServeChurnConfig(
-                                 churn=ccfg, pipeline_depth=depth,
-                                 use_writer=writer), obs=obs_sc, device=dev))
+            with served_ids() as sc_ids:
+                sc_out = counted("serve", ("simhash", "bucket_topk"),
+                                 lambda: run_serve_churn(ServeChurnConfig(
+                                     churn=ccfg, pipeline_depth=depth,
+                                     use_writer=writer), obs=obs_sc,
+                                     device=dev))
             wall = time.perf_counter() - t0
+            if writer:  # phase 11b's threaded writer holds against these
+                writer_one = (sc_out, sc_ids, wall)
             if obs_sc is not None:
                 spans = {}
                 for ev in obs_sc.tracer.events():
@@ -2230,10 +2335,13 @@ def main() -> int:
         annotations (at world 1 its even exchanges are one-rank copies
         under them), kept out of device time.  The profiler has lost
         most of a replicate round's device rows in one trace of the
-        card (its index_select and index_copy as well as NCCL's), so a
-        trace without them is taken again, up to `tries` traces."""
+        card (its index_select and index_copy as well as NCCL's, three
+        traces in a row once), so each trace follows one profiled
+        warm-up call, and a trace without them is taken again, up to
+        `tries` traces."""
         for attempt in range(1, tries + 1):
-            rows, _, spans = profile_batch(torch, f"p2p_procs {label}", fn)
+            rows, _, spans = profile_batch(torch, f"p2p_procs {label}", fn,
+                                           warmup=1)
             kernels = [r for r in rows if r[2].startswith("ncclDevKernel")]
             notes = [r for r in spans if r[2].startswith("nccl:")]
             if (any("SendRecv" in r[2] for r in kernels) if sendrecv
@@ -2341,7 +2449,170 @@ def main() -> int:
     if not (got["fused_query"] and got["fused_contains"]
             and (got["bucket_topk"] or got["hamming_words"])):
         raise AssertionError(f"p2p_procs: kernels never launched: {got}")
+
+    # -- 12 (item 6c): serving under the controller rank, on the group ------
+    # open-loop serving on serve_closed's world (rank 0 announces every
+    # batch), serve_lifecycle's threaded writer (its install point agreed
+    # at each stage boundary), and a threaded writer whose preps run a
+    # 4-node mesh's insert, expire and cache refresh over the writer's own
+    # NCCL group while the controller serves; launches on path serve_procs
+    import torch_dist_worker as dist_worker
+    from repro_torch.serve.control import Controller
+
+    ctl_wall = time.perf_counter()
+    a6 = cli_args(open_loop=True, pipeline=4)
+    with spied(keep_state=False) as seen_6:
+        ol6 = counted("serve_procs", ("simhash", "bucket_topk"),
+                      lambda: sr_cli.run_openloop(a6))
+    if ol6["control"] is None or not ol6["identical"]:
+        raise AssertionError("serve_procs open loop: not under a controller, "
+                             "or pipelined ids != sync ids")
+    ol_stream = dist_worker.stream_arrays("openloop", ol6["control"])
+    rec6 = seen_6[-1]
+    ol_backend = rec6.backend
+    del seen_6
+    def call_ms(fn):
+        """The host ms of one call of `fn`."""
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def batch6():
+        ol_backend.dispatch(rec6.q, rec6.ex, rec6.m)
+
+    # a stage under the controller: no host sync, as serve_open's stage;
+    # then the recorded batch dispatched and reaped under it, with the
+    # group but no controller, and its announce alone, in turn, 30 times
+    with Controller.of_world().leading(ol_backend) as ctl6:
+        ol_backend.dispatch(rec6.q, rec6.ex, rec6.m)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = ol_backend.dispatch_async(rec6.q, rec6.ex, rec6.m)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pending.wait()
+        disp6 = {"controller": [], "group": [], "announce": []}
+        with gc_paused():
+            for _ in range(30):
+                disp6["controller"].append(call_ms(batch6))
+                ol_backend.control = None
+                disp6["group"].append(call_ms(batch6))
+                ol_backend.control = ctl6
+                disp6["announce"].append(call_ms(lambda: ctl6.dispatch(
+                    rec6.q, rec6.ex, rec6.m)))
+    hold_at_path_shapes("serve_procs open loop", lambda: ol_backend.dispatch(
+        rec6.q, rec6.ex, rec6.m), ("simhash", "bucket_topk"))
+    t0 = time.perf_counter()
+    with served_ids() as w6_ids:
+        w6_out = counted("serve_procs", ("simhash", "bucket_topk"),
+                         lambda: run_serve_churn(ServeChurnConfig(
+                             churn=ccfg, pipeline_depth=4, use_writer=True),
+                             device=dev))
+    w6_wall = time.perf_counter() - t0
+    sc_one, ids_one, wall_one = writer_one
+    if not (np.array_equal(w6_out["recalls"], one["recalls"])
+            and len(w6_ids) == len(ids_one)
+            and all(np.array_equal(x6, y6) for x6, y6 in zip(w6_ids, ids_one))
+            and w6_out["writer_installed"] == sc_one["writer_installed"]):
+        raise AssertionError("serve_procs run_serve_churn: the threaded "
+                             "writer's run differs from the one-process one")
+    log(f"[serve_procs] run_serve_churn through the threaded writer on the "
+        f"group: recalls equal run_churn's, {len(w6_ids)} searches' ids "
+        f"equal the one-process run's, writer installs "
+        f"{w6_out['writer_installed']}; {w6_wall:.1f} s (one process "
+        f"{wall_one:.1f} s)")
+    rng6 = np.random.default_rng(args.seed + 6)
+    x6 = torch.from_numpy(rng6.standard_normal((65536, D),
+                                               dtype=np.float32)).to(dev)
+    x6 /= torch.linalg.vector_norm(x6, dim=1, keepdim=True)
+    p6 = LshParams(d=D, k=K, L=L, seed=args.seed + 6)
+    h6 = make_hyperplanes(p6, torch.Generator().manual_seed(args.seed + 6),
+                          device=dev)
+    w6 = dict(params=p6, h=h6, q=x6[:48], store=build_store_host(
+        ops.simhash(x6, h6), NB, 64, payload=x6, device=dev))
+    t0 = time.perf_counter()
+    kept6 = []
+    wc6 = counted("serve_procs", ("fused_query",),
+                  lambda: dist_worker.writer_under_control(w6, 1, dev,
+                                                           keep=kept6))
+    wc6_ms = (time.perf_counter() - t0) * 1e3
+    n_wc6 = int((~wc6["writer/kinds"]).sum())
+    if not (bool(wc6["writer/own_groups"]) and int(wc6["writer/installed"])
+            == dist_worker.WRITER_JOBS and int(wc6["writer/kinds"].sum())):
+        raise AssertionError(f"serve_procs writer under control: {wc6}")
+    # the first batch of the stream, on the last store the writer installed
+    rows6 = int(wc6["writer/arg"][~wc6["writer/kinds"]][0])
+    m6 = int(wc6["writer/m"][~wc6["writer/kinds"]][0])
+    hold_at_path_shapes("serve_procs writer", lambda: kept6[0].dispatch(
+        wc6["writer/q"][:rows6], wc6["writer/ex"][:rows6], m6),
+        ("fused_query",))
+    got = by_path["serve_procs"]
+    if not (got["simhash"] and got["bucket_topk"] and got["fused_query"]):
+        raise AssertionError(f"serve_procs: kernels never launched: {got}")
     tdist.destroy_process_group()
+    # the recorded streams replayed in one process (no process group):
+    # through the kernels, exactly; through the plain versions (the same
+    # stores: the writer's updates prepared once), up to near ties
+    with uncounted():
+        t0 = time.perf_counter()
+        re_ol = dist_worker.replay(ol_stream, "openloop", ol_backend)
+        re_ol_ms = (time.perf_counter() - t0) * 1e3
+        fe1, be1, prep1, _ = dist_worker.writer_world(w6, 1, dev)
+        ups = [prep1(be1.runtime, j) for j in range(dist_worker.WRITER_JOBS)]
+        t0 = time.perf_counter()
+        re_wc = dist_worker.replay(wc6, "writer", be1, ups)
+        re_wc_ms = (time.perf_counter() - t0) * 1e3
+        ol_plain = RuntimeBackend(
+            IndexRuntime(dataclasses.replace(ol_backend.runtime.cfg,
+                                             use_kernels=False), device=dev),
+            hyperplanes=ol_backend._hp, store=ol_backend._store,
+            corpus=ol_backend._corpus)
+        pl_ol, pl_ol_s = dist_worker.replay(ol_stream, "openloop", ol_plain,
+                                            scores=True)
+        _, be_p, _, _ = dist_worker.writer_world(w6, 1, dev,
+                                                 use_kernels=False)
+        pl_wc, pl_wc_s = dist_worker.replay(wc6, "writer", be_p, ups,
+                                            scores=True)
+        with gc_paused():
+            disp6["one process"] = [call_ms(batch6) for _ in range(30)]
+    n_ol = int((~ol_stream["openloop/kinds"]).sum())
+    if not (np.array_equal(re_ol, ol_stream["openloop/ids"])
+            and np.array_equal(re_wc, wc6["writer/ids"])):
+        raise AssertionError("serve_procs: a replay of the recorded stream "
+                             "in one process differs from the served ids")
+    # raises where an id differs outside a near tie, or a score by > TIE
+    swaps6 = dict(
+        openloop=topk_swaps(pl_ol_s, pl_ol, ol_stream["openloop/scores"],
+                            ol_stream["openloop/ids"], tol=TIE),
+        writer=topk_swaps(pl_wc_s, pl_wc, wc6["writer/scores"],
+                          wc6["writer/ids"], tol=TIE))
+    log(f"[serve_procs] the served streams against their replay through "
+        f"the plain versions: ids equal up to near ties (id swaps "
+        f"{swaps6}), scores within {TIE:g}; a stage under the controller "
+        f"made no host sync (sync-debug mode 'error')")
+    log(f"[serve_procs] one {len(rec6.q)}-row open-loop batch, dispatched "
+        f"and reaped, median ms of 30 (host clock): "
+        + ", ".join(f"{k} {np.median(v):.3f}" for k, v in disp6.items())
+        + " (controller: under it; group: the NCCL group alive, no "
+        "controller; announce: the controller's header and batch alone; "
+        "one process: after the group is destroyed)")
+    log(f"[serve_procs] open loop under the controller: {n_ol} dispatches "
+        f"announced and served; sync == pipelined ids; the one-process "
+        f"replay of the stream gives the same ids exactly; a "
+        f"{a6.max_batch}-query batch {1e3 * a6.max_batch / ol6['capacity']:.3f}"
+        f" ms under the controller (one process, serve_open: "
+        f"{open_one_ms:.3f} ms); replay {re_ol_ms / n_ol:.3f} ms a batch")
+    log(f"[serve_procs] threaded writer under the controller on the 4-node "
+        f"process mesh (65536 users, its preps over the writer's own NCCL "
+        f"group): {n_wc6} dispatches, installs at events "
+        f"{np.flatnonzero(wc6['writer/kinds']).tolist()}; the one-process "
+        f"replay gives the same ids exactly; {wc6_ms / n_wc6:.3f} ms a "
+        f"batch with the preps alongside (one-process replay "
+        f"{re_wc_ms / n_wc6:.3f} ms a batch); item 6c cells in "
+        f"{time.perf_counter() - ctl_wall:.1f} s")
+    del ol6, ol_stream, ol_backend, w6_out, w6_ids, writer_one, x6, w6, \
+        wc6, fe1, be1, ups, rec6, pending, kept6, ol_plain, be_p
     log(f"[p2p_procs] phase 11b in {time.perf_counter() - p2p_procs_wall:.1f}"
         f" s; every cell equal to its one-process cell exactly")
     del (kept, creps_p, creps_one, fails_one, flights_one, fail_p, node_p,
@@ -2679,6 +2950,86 @@ def main() -> int:
         del st_lm, ids_lm, eng, rt_lm, emb, plain_eng, rt_plain
     log(f"[lm] phase 14 in {time.perf_counter() - lm_wall:.1f} s")
 
+    # -- 15. [examples]: the port's examples on the card and on the CPU ----
+    ex_wall = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_quickstart
+    import torch_retrieval_serve
+
+    qs_lines = {"card": [], "cpu": []}
+    qs = {"card": counted("examples", ("simhash",),
+                          lambda: torch_quickstart.run(
+                              device=dev, log=qs_lines["card"].append)),
+          "cpu": torch_quickstart.run(device="cpu",
+                                      log=qs_lines["cpu"].append)}
+    # the near-tie rule: each variant's ids, and the oracle's, card
+    # against CPU; a table row may differ only where they hold a near tie
+    swaps = {v: topk_swaps(qs["cpu"][v]["scores"], qs["cpu"][v]["ids"],
+                           qs["card"][v]["scores"], qs["card"][v]["ids"])
+             for v in torch_quickstart.VARIANTS + ("ideal",)}
+    for row_card, row_cpu in zip(qs_lines["card"], qs_lines["cpu"]):
+        v = row_card.split()[0]
+        if row_card != row_cpu and not (
+                v in swaps and swaps[v] + swaps["ideal"]
+                and row_card.split()[1] == row_cpu.split()[1]):
+            raise AssertionError(f"examples quickstart: card row "
+                                 f"{row_card!r} != CPU row {row_cpu!r}")
+    card = qs["card"]
+    if not (card["cnb"]["messages"] == card["lsh"]["messages"]
+            and card["cnb"]["recall"] > card["lsh"]["recall"]):
+        raise AssertionError("examples quickstart: cnb does not beat lsh at "
+                             "lsh's messages")
+    for row in qs_lines["card"]:
+        log(f"[examples] quickstart | {row}")
+    exact = qs_lines["card"] == qs_lines["cpu"]
+    log(f"[examples] quickstart: the card's table equals the CPU's "
+        f"{'exactly' if exact else 'up to near ties'} (near-tie id swaps "
+        f"by variant {swaps}); cnb {card['cnb']['recall']:.3f} against lsh "
+        f"{card['lsh']['recall']:.3f} recall@10 at "
+        f"{card['lsh']['messages']:.0f} messages")
+    # one draw of the weights for both devices (a generator on the card
+    # draws other numbers than one on the CPU)
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm_model
+
+    rs_model = lm_model.init_model(get_config("gemma2-2b", smoke=True), 0,
+                                   device="cpu")
+    rs_lines = {"card": [], "cpu": []}
+    rs = {"card": counted("examples", ("simhash", "bucket_topk"),
+                          lambda: torch_retrieval_serve.run(
+                              device=dev, model=copy.deepcopy(rs_model).to(
+                                  dev), log=rs_lines["card"].append)),
+          "cpu": torch_retrieval_serve.run(device="cpu", model=rs_model,
+                                           log=rs_lines["cpu"].append)}
+
+    def no_latency(lines):
+        return [row.split("; p99 latency")[0] for row in lines]
+
+    if no_latency(rs_lines["card"]) != no_latency(rs_lines["cpu"]):
+        raise AssertionError(f"examples retrieval_serve: card lines "
+                             f"{rs_lines['card']} != CPU lines "
+                             f"{rs_lines['cpu']}")
+    for row in rs_lines["card"]:
+        log(f"[examples] retrieval_serve | {row}")
+    # the served ids: the CPU's, or different only within near ties (a
+    # score more than TIE from the CPU's, or an id swapped outside a near
+    # tie, raises)
+    same_ids = np.array_equal(rs["card"]["ids"], rs["cpu"]["ids"])
+    swaps_rs = 0 if same_ids else topk_swaps(
+        rs["cpu"]["scores"], rs["cpu"]["ids"], rs["card"]["scores"],
+        rs["card"]["ids"], tol=TIE)
+    hold_at_path_shapes("examples retrieval_serve", lambda:
+                        torch_retrieval_serve.run(
+                            device=dev, model=copy.deepcopy(rs_model).to(dev),
+                            log=lambda *_: None),
+                        ("simhash", "bucket_topk"))
+    log(f"[examples] retrieval_serve: the card's lines equal the CPU's (the "
+        f"p99 latency aside; CPU: {rs_lines['cpu'][-1].split('; ')[-1]}); "
+        f"served ids {'equal' if same_ids else 'equal up to near ties'} to "
+        f"the CPU's (one weight draw; near-tie id swaps {swaps_rs}); phase "
+        f"in {time.perf_counter() - ex_wall:.1f} s")
+    del qs, rs
+
     # -- 13. kernels line ---------------------------------------------------
     for name, k in kernels.items():
         k["launches"] = sum(got[name] for got in by_path.values())
@@ -2687,7 +3038,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    log(f"[kernels] launches in phases 5-12 and 14: "
+    log(f"[kernels] launches in phases 5-12, 14 and 15: "
         f"{ {n: k['launches'] for n, k in kernels.items()} }")
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))

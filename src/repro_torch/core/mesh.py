@@ -23,6 +23,12 @@ The port has two forms of it:
 Both give the step wrappers of `repro_torch.core.distributed` one
 interface: `world`, `collectives(cfg)`, `my_slices(x)`,
 `whole_batch(x)`, `store_zones(store)` and `sum_stats(totals)`.
+
+A `ProcessZoneMesh` issues every collective on its own groups: the
+model axis, the batch axes and the world (`world_group`).
+`with_own_groups()` gives the same mesh over a second set of them, so
+that a second thread (the serving writer's, `repro_torch.serve.writer`)
+never shares a communicator with the first.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ from repro_torch.core.runtime import BlockCollectives, MeshCollectives
 from repro_torch.core.store import BucketStore
 
 
+# ProcessZoneMesh.with_own_groups's group sets, by layout
+_OWN_GROUPS: dict = {}
+
+
 def _slices(mesh, x: torch.Tensor) -> torch.Tensor:
     """[B, ...] -> [data*n, B/(data*n), ...]: the batch slice of each data
     row and node, in node order; a batch that does not divide raises."""
@@ -46,10 +56,11 @@ def _slices(mesh, x: torch.Tensor) -> torch.Tensor:
     return x.reshape((shards, -1) + x.shape[1:])
 
 
-def _broadcast(outs, like, device) -> list:
-    """The tensors `outs` of rank 0 on every rank of the world, in one
-    broadcast of their bytes; `like` gives each one's (shape, dtype),
-    which a rank without `outs` (None) allocates."""
+def broadcast0(outs, like, device, group=None) -> list:
+    """The tensors `outs` of rank 0 on every rank of `group` (None: the
+    default group), in one broadcast of their bytes; `like` gives each
+    one's (shape, dtype), which a rank without `outs` (None)
+    allocates."""
     sizes = [int(torch.Size(shape).numel()) * torch.empty(
         (), dtype=dtype).element_size() for shape, dtype in like]
     if outs is None:
@@ -57,7 +68,7 @@ def _broadcast(outs, like, device) -> list:
     else:
         wire = torch.cat([o.contiguous().reshape(-1).view(torch.uint8)
                           for o in outs])
-    tdist.broadcast(wire, src=0)
+    tdist.broadcast(wire, src=0, group=group)
     return [part.clone().view(dtype).reshape(shape) for part, (shape, dtype)
             in zip(wire.split(sizes), like)]
 
@@ -90,6 +101,10 @@ class ZoneMesh:
 
     def collectives(self, cfg) -> MeshCollectives:
         return MeshCollectives(n=cfg.n_nodes, device=self.device)
+
+    def with_own_groups(self) -> "ZoneMesh":
+        """One process has no process groups: the mesh itself."""
+        return self
 
     def my_slices(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] -> [data, n, B/(data*n), ...]: every slice."""
@@ -129,10 +144,11 @@ class ProcessZoneMesh:
 
     `model_group` holds the ranks of this rank's data row (the model
     axis, None meaning the default group); `batch_group` the mesh's
-    ranks (None: the default group, when they are the whole world).
-    `prefix` > 0 is the mesh's rank count where it is a prefix of the
-    world (0: every rank).  `pod` > 1 splits the data rows into pods,
-    for the shape of a multi-pod mesh."""
+    ranks (None: the default group, when they are the whole world);
+    `world_group` every rank (None: the default group).  `prefix` > 0
+    is the mesh's rank count where it is a prefix of the world (0: every
+    rank).  `pod` > 1 splits the data rows into pods, for the shape of a
+    multi-pod mesh."""
 
     n_model: int
     data: int
@@ -143,6 +159,7 @@ class ProcessZoneMesh:
     pod: int = 1
     prefix: int = 0
     batch_group: object = None
+    world_group: object = None
 
     @property
     def ranks(self) -> int:
@@ -180,6 +197,29 @@ class ProcessZoneMesh:
     @property
     def batch_axes(self) -> tuple:
         return tuple(self.shape)
+
+    def with_own_groups(self) -> "ProcessZoneMesh":
+        """This mesh over a second set of process groups (world, batch
+        and each data row's model group), made once per default process
+        group and layout: every rank of the world must make it, in one
+        order, on its first call for the layout (NCCL and gloo require
+        it); later calls reuse it."""
+        key = (self.world, self.ranks, self.data, self.blocks)
+        made = _OWN_GROUPS.get(key)
+        if made is None or made[0] is not tdist.group.WORLD:
+            world = tdist.new_group(list(range(self.world)))
+            batch = world if self.ranks == self.world else tdist.new_group(
+                list(range(self.ranks)))
+            rows = [batch] if self.data == 1 else [
+                tdist.new_group(list(range(r * self.blocks,
+                                           (r + 1) * self.blocks)))
+                for r in range(self.data)]
+            made = (tdist.group.WORLD, world, batch, rows)
+            _OWN_GROUPS[key] = made
+        _, world, batch, rows = made
+        return dataclasses.replace(
+            self, model_group=rows[self.row] if self.active else None,
+            batch_group=batch, world_group=world)
 
     def collectives(self, cfg) -> BlockCollectives:
         return BlockCollectives(n=cfg.n_nodes, n_loc=self.n_loc,
@@ -228,7 +268,8 @@ class ProcessZoneMesh:
             if not self.active:
                 zones = zones.new_zeros((w,) + zones.shape[1:])
             out = zones.new_empty((self.world * w,) + zones.shape[1:])
-            tdist.all_gather_into_tensor(out, zones.contiguous())
+            tdist.all_gather_into_tensor(out, zones.contiguous(),
+                                         group=self.world_group)
             return out[:self.blocks * w].movedim(0, 1).contiguous()
 
         return BucketStore(gather(store.ids), gather(store.timestamps),
@@ -257,12 +298,13 @@ class ProcessZoneMesh:
         outs = fn() if self.active else None
         if self.ranks == self.world:
             return outs
-        return _broadcast(outs, like, self.device)
+        return broadcast0(outs, like, self.device, self.world_group)
 
     def reduce_ranks(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """`x` reduced (`sum` or `max`) over every rank of the world."""
         out = x.clone()
         if self.world > 1:
             tdist.all_reduce(out, op=dict(sum=tdist.ReduceOp.SUM,
-                                          max=tdist.ReduceOp.MAX)[op])
+                                          max=tdist.ReduceOp.MAX)[op],
+                             group=self.world_group)
         return out

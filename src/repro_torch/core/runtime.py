@@ -355,19 +355,6 @@ def process_world() -> int:
     return tdist.get_world_size() if tdist.is_initialized() else 1
 
 
-def require_one_process(what: str) -> None:
-    """Refuse `what` in a world of several processes: every rank must
-    take the same batches in the same order, which a wall clock or a
-    writer thread does not give; it is ROADMAP item 6c (a controller
-    rank that forms each batch and broadcasts it)."""
-    world = process_world()
-    if world > 1:
-        raise NotImplementedError(
-            f"{what} in a world of {world} processes is ROADMAP item 6c (a "
-            "controller rank that forms each batch and broadcasts it); run "
-            "it in one process")
-
-
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """Merge the node axis into the row axis: [n, R, ...] -> [n*R, ...]."""
     return x.reshape((-1,) + x.shape[2:])

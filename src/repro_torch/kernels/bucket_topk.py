@@ -2,7 +2,8 @@
 
 `bucket_topk_cuda` launches `csrc/bucket_topk.cu` (the CUDA port of the
 TPU kernel `repro/kernels/bucket_topk.py::bucket_topk_pallas`) on the
-grid that `grid` picks; `bucket_topk_plain` is the same function in
+grid that `grid` picks, with the card's tuned `parts_per_sm`
+(`kernels.autotune`, op "bucket_topk"; PARTS_PER_SM is the default); `bucket_topk_plain` is the same function in
 plain PyTorch, and `two_phase_plain` the kernels' own two phases (top m
 of each part of a row, then of their union) in plain PyTorch.  All take
 validity as bitfield words int32 [b, ceil(kc/32)]: bit i of word w is
@@ -17,7 +18,7 @@ import functools
 import torch
 
 from repro_torch.core.hashing import to_int32_bits
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 
 def pack_valid(valid: torch.Tensor) -> torch.Tensor:
@@ -58,16 +59,17 @@ def _parts(b: int, nw: int, parts: int) -> BucketTopkGrid:
 
 
 @functools.lru_cache(maxsize=256)
-def grid(b: int, kc: int, m: int, sms: int) -> BucketTopkGrid:
+def grid(b: int, kc: int, m: int, sms: int,
+         parts_per_sm: int = PARTS_PER_SM) -> BucketTopkGrid:
     """Deal each row's ceil(kc/32) validity words to parts, enough of
-    them that b * parts blocks fill the card's `sms` SMs PARTS_PER_SM
+    them that b * parts blocks fill the card's `sms` SMs `parts_per_sm`
     times over (at most a part a word).  For m > 32 a row's parts hold
     at most MERGE_KEYS entries together, which its merge sorts in shared
     memory, and, as far as that allows, enough parts that each part's
     sort keys fit a block's SMEM_BLOCK bytes (beyond, the launch
     raises)."""
     nw = -(-kc // 32)
-    want = -(-PARTS_PER_SM * sms // b) if b else 1
+    want = -(-parts_per_sm * sms // b) if b else 1
     if m > FAST_M:
         most = min(nw, max(1, MERGE_KEYS // m))
         want = min(want, most)
@@ -123,13 +125,16 @@ def bucket_topk_plain(q, cand, vwords, m: int):
     return ref.bucket_topk_ref(q, cand, unpack_valid(vwords, cand.shape[1]), m)
 
 
-def bucket_topk_cuda(q, cand, vwords, m: int):
+def bucket_topk_cuda(q, cand, vwords, m: int, tuned: dict | None = None):
     """The kernels on contiguous CUDA tensors: q f32 [b, d], cand f32
-    [b, kc, d], vwords int32 [b, ceil(kc/32)]."""
+    [b, kc, d], vwords int32 [b, ceil(kc/32)]; on the grid of the card's
+    tuned parameters (or of `tuned`)."""
     b, kc, d = cand.shape
     scores = torch.empty((b, m), dtype=torch.float32, device=q.device)
     idx = torch.empty((b, m), dtype=torch.int32, device=q.device)
-    g = grid(b, kc, m, _build.sm_count(q.device))
+    p = autotune.get("bucket_topk", autotune.device_kind(q.device)) \
+        if tuned is None else tuned
+    g = grid(b, kc, m, _build.sm_count(q.device), int(p["parts_per_sm"]))
     n_part = b * g.parts if g.parts > 1 or m > FAST_M else 0
     part_s = torch.empty((n_part, m), dtype=torch.float32, device=q.device)
     part_i = torch.empty((n_part, m), dtype=torch.int32, device=q.device)

@@ -863,7 +863,8 @@ fq_select(const int32_t* __restrict__ ids_flat,  // [R, C]
 // The other valid probes follow FC_PROBES at a time, every load of a
 // round in flight before its first compare.  Invalid probes, and rows
 // with no valid probe, load no ids.
-#define FC_MAX_ROWS 16  // most rows (warps) a block (CONTAINS_MAX_ROWS)
+#define FC_MAX_ROWS 16  // rows (warps) a block of the default build, and
+                        // CONTAINS_MAX_ROWS; a 32-row build serves 32
 #define FC_VECS 4       // loads a lane takes along one bucket row a round
 #define FC_PROBES 2     // probes a round after the first
 
@@ -914,14 +915,16 @@ __device__ __forceinline__ int fc_scan(const int32_t* __restrict__ ids_flat,
   return hit;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(FC_MAX_ROWS * 32)
+// MAXR: the most rows a block of this build takes (16, or 32 for the
+// tuned grids that ask for 32), which bounds its registers a thread.
+template <bool VEC, int MAXR>
+__global__ void __launch_bounds__(MAXR * 32)
 fused_contains_kernel(const int32_t* __restrict__ ids_flat,  // [R, C]
                       const int32_t* __restrict__ fb,        // [r, P]
                       const int32_t* __restrict__ meta,      // [r, 2]
                       uint8_t* __restrict__ out,             // bool [r]
                       int r, int n_rows, int c, int n_probes) {
-  __shared__ int bucket[FC_MAX_ROWS][32];  // each warp's valid probes
+  __shared__ int bucket[MAXR][32];  // each warp's valid probes
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= r) return;  // whole warp
@@ -1058,7 +1061,8 @@ extern "C" int fused_contains_launch(const void* ids_flat, const void* fb,
                                      const void* meta, void* out, int r,
                                      int n_rows, int c, int n_probes,
                                      int rows, void* stream) {
-  if (n_probes > 31 || n_rows < 1 || c < 1 || rows < 1 || rows > FC_MAX_ROWS)
+  if (n_probes > 31 || n_rows < 1 || c < 1 || rows < 1 ||
+      rows > 2 * FC_MAX_ROWS)
     return (int)cudaErrorInvalidValue;
   if (r == 0) return (int)cudaGetLastError();
   const int32_t *ids = (const int32_t*)ids_flat, *i_fb = (const int32_t*)fb,
@@ -1066,11 +1070,17 @@ extern "C" int fused_contains_launch(const void* ids_flat, const void* fb,
   uint8_t* hit = (uint8_t*)out;
   const int blocks = (int)(((long long)r + rows - 1) / rows);
   cudaStream_t st = (cudaStream_t)stream;
-  if (c % 4 == 0 && (uintptr_t)ids % 16 == 0)
-    fused_contains_kernel<true><<<blocks, rows * 32, 0, st>>>(
-        ids, i_fb, i_meta, hit, r, n_rows, c, n_probes);
-  else
-    fused_contains_kernel<false><<<blocks, rows * 32, 0, st>>>(
-        ids, i_fb, i_meta, hit, r, n_rows, c, n_probes);
+  const bool vec = c % 4 == 0 && (uintptr_t)ids % 16 == 0;
+#define FC_GO(V, R)                                      \
+  fused_contains_kernel<V, R><<<blocks, rows * 32, 0, st>>>( \
+      ids, i_fb, i_meta, hit, r, n_rows, c, n_probes)
+  if (rows <= FC_MAX_ROWS) {
+    if (vec) FC_GO(true, FC_MAX_ROWS);
+    else FC_GO(false, FC_MAX_ROWS);
+  } else {
+    if (vec) FC_GO(true, 2 * FC_MAX_ROWS);
+    else FC_GO(false, 2 * FC_MAX_ROWS);
+  }
+#undef FC_GO
   return (int)cudaGetLastError();
 }

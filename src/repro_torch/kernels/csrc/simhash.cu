@@ -25,17 +25,19 @@
 // of 32 columns, through a private two-stage ring in shared memory that
 // 16-byte cp.async (cg, zero fill past the edges) refills while the
 // other stage is multiplied: no block barrier after the hyperplanes are
-// staged.  A warp's lanes are 4 hyperplane groups of 12 x 8 row groups
-// (a block holds at most 48 hyperplanes; those past its last element are
-// zero, and their bits are cut away on output).  A lane holds 8 rows (4 in
-// a 32-row chunk) x 12 hyperplanes, and per 4 columns loads 8 float4 of x
-// and 12 float4 of hyperplanes (one address per quarter-warp) for 384
-// FMAs: 1.2 FMAs per delivered byte, against the SM's 128 FMAs and 128
+// staged.  A warp's lanes are HG hyperplane groups of 12 x 32/HG row
+// groups, HG = 4 (a block holds at most 48 hyperplanes) or 2 (24, and
+// twice the row groups; the host picks it, kernels/autotune.py); the
+// hyperplanes past a block's last element are zero, and their bits are
+// cut away on output.  At HG = 4 a lane holds 8 rows (4 in a 32-row
+// chunk) x 12 hyperplanes, and per 4 columns loads 8 float4 of x and 12
+// float4 of hyperplanes (one address per quarter-warp) for 384 FMAs: 1.2
+// FMAs per delivered byte, against the SM's 128 FMAs and 128
 // shared-memory bytes a cycle.  Ring rows are 128
 // bytes with an XOR swizzle of their 16-byte chunks, so 8 rows read at
 // once hit distinct banks.  At the end of a chunk each lane turns its 12
 // signs per row into a mask in registers (shift-or), 3 shuffles gather a
-// row's 48 bits, and each lane cuts its elements out with 64-bit shifts
+// row's 12 * HG bits, and each lane cuts its elements out with 64-bit shifts
 // and writes them.
 //
 // simhash_warp_kernel (small n, a search batch).  One warp a (4 rows, one
@@ -51,7 +53,7 @@
 #include "common.cuh"
 
 #define SH_J 12           // hyperplanes a lane holds accumulators for
-#define SH_HG 4           // hyperplane groups of a stream warp (48 a block)
+// a stream warp's hyperplane groups (HG) are 4 or 2: 48 or 24 a block
 #define SH_THREADS 256    // a stream block, at most
 #define SS_DC 32          // columns of a ring stage (128-byte rows)
 #define SS_STAGES 2
@@ -74,10 +76,10 @@ __host__ __device__ static inline int sh_groups(int cs_i, int epb, int width,
   return (hi2 - lo + SH_J - 1) / SH_J;
 }
 
-// Shared memory of a stream block; kernels/simhash.py::stream_smem_bytes
-// mirrors it.
-static size_t stream_smem(int d, int warps, int rows) {
-  return sizeof(float) * ((size_t)sh_dpad(d) * SH_J * SH_HG +
+// Shared memory of a stream block of `hg` hyperplane groups;
+// kernels/simhash.py::stream_smem_bytes mirrors it.
+static size_t stream_smem(int d, int warps, int rows, int hg) {
+  return sizeof(float) * ((size_t)sh_dpad(d) * SH_J * hg +
                           (size_t)warps * SS_STAGES * rows * SS_DC);
 }
 
@@ -139,14 +141,15 @@ __device__ __forceinline__ void write_row(int32_t* __restrict__ out_row,
   }
 }
 
-// SH_HG hyperplane groups x 32/SH_HG row groups a warp, ROWS rows a chunk.
-template <bool VEC, int ROWS>
+// HG hyperplane groups x 32/HG row groups a warp, ROWS rows a chunk.
+template <bool VEC, int ROWS, int HG>
 __global__ void __launch_bounds__(SH_THREADS, 1)
 simhash_stream_kernel(const float* __restrict__ x,  // [n, d]
                       const float* __restrict__ h,  // [L*k, d], table-major
                       int32_t* __restrict__ out,    // [n, width]
                       int n, int d, int k, int L, int packed, int epb) {
-  constexpr int HG = SH_HG, RG = 32 / HG, RPL = ROWS / RG, HS = SH_J * HG;
+  constexpr int RG = 32 / HG, RPL = ROWS / RG, HS = SH_J * HG;
+  static_assert(RG % 8 == 0, "the ring swizzle needs row groups of 8");
   constexpr int STAGE = ROWS * SS_DC;
   extern __shared__ __align__(16) float smem[];
   const int lk = L * k, width = packed ? (lk + 31) / 32 : L;
@@ -355,7 +358,7 @@ simhash_warp_kernel(const float* __restrict__ x,  // [n, d]
   }
 }
 
-static int simhash_smem_limit[4][SMEM_MAX_DEVICES];
+static int simhash_smem_limit[8][SMEM_MAX_DEVICES];
 
 template <typename... Params, typename... Args>
 static int simhash_go(void (*fn)(Params...), int* limit, size_t smem,
@@ -369,14 +372,15 @@ static int simhash_go(void (*fn)(Params...), int* limit, size_t smem,
 
 // The grid comes from the host (kernels/simhash.py::grid).  The stream
 // kernel: `warps` a block, `rows` rows a warp's chunk (64 or 32), `epb`
-// output elements a block (a grid column each), `grid_rows` blocks along
-// the rows.  The warp kernel
+// output elements a block (a grid column each), `groups` hyperplane
+// groups of 12 a block (4 or 2), `grid_rows` blocks along the rows.  The
+// warp kernel
 // (stream_mode 0): `rows` rows a warp (4, or 2 past 16 hyperplanes an
 // element), SW_WARPS warps a block.
 extern "C" int simhash_launch(const void* x, const void* h, void* out, int n,
                               int d, int k, int L, int packed,
                               int stream_mode, int warps, int rows, int epb,
-                              int grid_rows, void* stream) {
+                              int groups, int grid_rows, void* stream) {
   const int lk = L * k, width = packed ? (lk + 31) / 32 : L;
   if (k > 32 || n < 0) return (int)cudaErrorInvalidValue;
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0;
@@ -415,19 +419,25 @@ extern "C" int simhash_launch(const void* x, const void* h, void* out, int n,
     const int gi = sh_groups(i, epb, width, k, lk, packed);
     gmax = gi > gmax ? gi : gmax;
   }
-  if (gmax > SH_HG || (rows != 64 && rows != 32))
+  if ((groups != 4 && groups != 2) || gmax > groups ||
+      (rows != 64 && rows != 32))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = stream_smem(d, warps, rows);
+  const size_t smem = stream_smem(d, warps, rows, groups);
   const dim3 grid(grid_rows, col_splits);
-  int* lim = simhash_smem_limit[(vec ? 2 : 0) + (rows == 64 ? 0 : 1)];
-#define SH_STREAM(V, R)                                                     \
-  return simhash_go(simhash_stream_kernel<V, R>, lim, smem, grid,           \
+  int* lim = simhash_smem_limit[(vec ? 4 : 0) + (rows == 64 ? 0 : 2) +
+                                (groups == 4 ? 0 : 1)];
+#define SH_STREAM(V, R, G)                                                  \
+  return simhash_go(simhash_stream_kernel<V, R, G>, lim, smem, grid,        \
                     32 * warps, st, xf, hf, o, n, d, k, L, packed, epb)
+#define SH_STREAM_G(V, R) \
+  if (groups == 4) SH_STREAM(V, R, 4); \
+  SH_STREAM(V, R, 2)
   if (vec) {
-    if (rows == 64) SH_STREAM(true, 64);
-    SH_STREAM(true, 32);
+    if (rows == 64) { SH_STREAM_G(true, 64); }
+    SH_STREAM_G(true, 32);
   }
-  if (rows == 64) SH_STREAM(false, 64);
-  SH_STREAM(false, 32);
+  if (rows == 64) { SH_STREAM_G(false, 64); }
+  SH_STREAM_G(false, 32);
+#undef SH_STREAM_G
 #undef SH_STREAM
 }

@@ -23,9 +23,12 @@ the host runs ahead: the score buffer holds r*P pairs, unless that
 exceeds `SCORE_BUFFER_BYTES`; then the host waits once for the count of
 valid pairs and sizes the buffer by it (`score_buffer_rows`).
 
-fused_contains takes a warp a row, `contains_grid` rows a block: the
-first valid probe alone, stopping at a hit, then the others two at a
-time.
+fused_contains takes a warp a row, `contains_grid` rows a block (at most
+the card's tuned `max_rows`, `kernels.autotune` op "fused_contains";
+CONTAINS_MAX_ROWS is the default): the first valid probe alone,
+stopping at a hit, then the others two at a time.  fused_query has no
+tuned parameter: its work items are `ITEM_ROWS` pairs, a constant of
+the CUDA source.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 MAX_PROBES = 31  # the validity word is an int32 with bit 31 clear
 ITEM_ROWS = 16   # pairs of one score work item (FQ_ITEM_ROWS in the source)
@@ -239,24 +242,32 @@ class ContainsGrid:
 
 
 @functools.lru_cache(maxsize=256)
-def contains_grid(r: int, sms: int) -> ContainsGrid:
+def contains_grid(r: int, sms: int,
+                  max_rows: int = CONTAINS_MAX_ROWS) -> ContainsGrid:
     """The contains kernel's blocks for r rows on a card of `sms` SMs: the
-    most rows a block (a power of two, up to CONTAINS_MAX_ROWS) that
-    still leaves a block for every SM, so that a small batch spreads
-    over the card."""
-    rows = CONTAINS_MAX_ROWS
+    most rows a block (a power of two, up to `max_rows`) that still
+    leaves a block for every SM, so that a small batch spreads over the
+    card."""
+    if max_rows < 1 or max_rows & (max_rows - 1) or max_rows > 32:
+        raise ValueError(f"fused_contains: max_rows must be a power of two "
+                         f"up to 32 (a warp a row), got {max_rows}")
+    rows = max_rows
     while rows > 1 and -(-r // rows) < sms:
         rows //= 2
     return ContainsGrid(rows, -(-r // rows))
 
 
-def fused_contains_cuda(ids_flat, fb, meta) -> torch.Tensor:
+def fused_contains_cuda(ids_flat, fb, meta,
+                        tuned: dict | None = None) -> torch.Tensor:
     """The kernel on contiguous CUDA tensors (see `ops.fused_contains`),
-    on the blocks `contains_grid` picks."""
+    on the blocks `contains_grid` picks with the card's tuned `max_rows`
+    (or `tuned`'s)."""
     n_rows, c = ids_flat.shape
     r, n_probes = fb.shape
     hit = torch.empty((r,), dtype=torch.bool, device=fb.device)
-    g = contains_grid(r, _build.sm_count(fb.device))
+    p = autotune.get("fused_contains", autotune.device_kind(fb.device)) \
+        if tuned is None else tuned
+    g = contains_grid(r, _build.sm_count(fb.device), int(p["max_rows"]))
     launch = _build.entry("fused_query", "fused_contains_launch",
                           [_build.P] * 4 + [_build.I] * 5 + [_build.P])
     _build.check(launch(ids_flat.data_ptr(), fb.data_ptr(), meta.data_ptr(),

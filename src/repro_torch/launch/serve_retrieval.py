@@ -31,13 +31,24 @@ served miss against the exact top-m (DESIGN.md Sec. 12).
 Runs on the CUDA card unless `--device cpu`; on the card the engine
 sketches through the simhash kernel and scores through bucket_topk.
 
+Under torchrun every rank builds the same world; rank 0 prints and
+writes files.  The closed loop runs in lockstep (every rank forms the
+same batches).  The open loop runs under a controller
+(`repro_torch.serve.control`): rank 0 runs the schedule and announces
+each batch, the other ranks serve what they receive, and the capacity,
+the offered rate and the sync == pipelined verdict are rank 0's.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_retrieval --smoke \
         --device cpu --trace-out serve_trace.json
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve_retrieval --smoke --open-loop \
+        --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -48,13 +59,14 @@ from repro_torch.core import (
     DenseCorpus, EngineConfig, LshEngine, LshParams, make_hyperplanes,
 )
 from repro_torch.core.hashing import sketch_codes_batched
-from repro_torch.core.runtime import require_one_process
 from repro_torch.core.store import build_store_host, expire, insert_batch
+from repro_torch.launch.mesh import is_rank0, say, torchrun_group
 from repro_torch.obs import Observability, ObsConfig
 from repro_torch.serve import (
     FrontendConfig, RetrievalFrontend, RuntimeBackend, poisson_arrivals,
     run_open_loop,
 )
+from repro_torch.serve.control import Controller
 
 
 def _unit(x):
@@ -168,16 +180,16 @@ def run(args, obs=None) -> dict:
                                write_epoch)
     frontend.flush()
 
-    print(frontend.stats.format_summary())
+    say(frontend.stats.format_summary())
     cost = frontend.backend.cost()
-    print(f"[serve] closed-form messages/query (no cache) = {cost.messages:.1f}"
-          f"  store generation = {frontend.backend.generation}")
+    say(f"[serve] closed-form messages/query (no cache) = {cost.messages:.1f}"
+        f"  store generation = {frontend.backend.generation}")
     if obs is not None:
         frontend.stats.publish(obs.registry)
         probe = obs.registry.value("serve_recall_probe", window="mean")
         if probe is not None:
-            print(f"[serve] shadow recall probe (1-in-"
-                  f"{obs.config.recall_probe_every} misses) = {probe:.3f}")
+            say(f"[serve] shadow recall probe (1-in-"
+                f"{obs.config.recall_probe_every} misses) = {probe:.3f}")
     return frontend.stats.summary()
 
 
@@ -186,13 +198,35 @@ def run_openloop(args, obs=None) -> dict:
     offered rate, served TWICE on the same warm runtime — synchronous
     (depth 1), then pipelined (`--pipeline`) — latency measured from the
     SCHEDULE (DESIGN.md Sec. 13).  Returns per-mode results plus the
-    bit-identity verdict the smoke gate checks.  Arrivals are paced by
-    the wall clock, so the ranks of a world of several processes would
-    form different batches: there it raises (ROADMAP item 6c)."""
-    require_one_process("open-loop serving (run_openloop)")
+    bit-identity verdict the smoke gate checks, and `control`.
+
+    Arrivals are paced by the wall clock, so in a world of several
+    processes rank 0 leads (`control`, a `serve.control.Controller`;
+    None in one process): the warm-up, the capacity probe and both
+    timed modes run on rank 0, which announces every dispatch, and the
+    other ranks serve what they receive; their `sync` / `pipelined` are
+    None, and the capacity, rate and verdict are rank 0's."""
     rng = np.random.default_rng(args.seed)
     frontend, emb, h, store = build_frontend(args, rng, obs=obs)
     backend = frontend.backend
+    control = Controller.of_world()
+    if control is not None and not control.leads:
+        control.follow(backend)
+        capacity, rate, identical = control.share()
+        return dict(sync=None, pipelined=None, identical=bool(identical),
+                    rate=rate, capacity=capacity, control=control)
+    with (contextlib.nullcontext() if control is None
+          else control.leading(backend)):
+        out = _openloop_modes(args, backend, emb)
+    if control is not None:
+        control.share([out["capacity"], out["rate"],
+                       float(out["identical"])])
+    return dict(out, control=control)
+
+
+def _openloop_modes(args, backend, emb) -> dict:
+    """`run_openloop`'s runs on this process's backend: warm-up, the
+    capacity probe, then the schedule at sync and pipelined depth."""
 
     def fresh(depth):
         return RetrievalFrontend(
@@ -306,24 +340,33 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def smoke_preset(args) -> None:
+    """`--smoke`'s small world and its defaults, set on `args`."""
+    args.n, args.d, args.k = 2000, 32, 6
+    args.pool, args.queries = 96, 400
+    args.offered, args.max_batch, args.queue_capacity = 16, 32, 128
+    if args.churn_every == 0:
+        args.churn_every = 8
+    if (args.trace_out or args.metrics_out) \
+            and args.recall_probe_every == 0:
+        args.recall_probe_every = 8
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-
     if args.smoke:
-        args.n, args.d, args.k = 2000, 32, 6
-        args.pool, args.queries = 96, 400
-        args.offered, args.max_batch, args.queue_capacity = 16, 32, 128
-        if args.churn_every == 0:
-            args.churn_every = 8
-        if (args.trace_out or args.metrics_out) \
-                and args.recall_probe_every == 0:
-            args.recall_probe_every = 8
+        smoke_preset(args)
 
     obs = None
     if args.trace_out or args.metrics_out or args.recall_probe_every:
         obs = Observability(ObsConfig(
             recall_probe_every=max(args.recall_probe_every, 0)))
 
+    with torchrun_group(args.device):
+        return _main(args, obs)
+
+
+def _main(args, obs):
     if args.open_loop:
         ol = run_openloop(args, obs=obs)
         if args.smoke:
@@ -331,8 +374,9 @@ def main(argv=None):
             # (a smoke rate never sheds), the latency population is sane,
             # the SLO verdict is well-defined at both depths, and — the
             # pipeline's non-negotiable invariant — the two paths served
-            # bit-identical ids on the same schedule.
-            for name in ("sync", "pipelined"):
+            # bit-identical ids on the same schedule (rank 0's runs; the
+            # verdict reaches every rank)
+            for name in ("sync", "pipelined") if is_rank0() else ():
                 r = ol[name]
                 _gate(r.completed == args.queries and r.shed == 0, name)
                 _gate(np.isfinite(r.p99_ms) and r.p99_ms >= r.p50_ms > 0,
@@ -341,23 +385,23 @@ def main(argv=None):
                     r.shed == 0 and r.p99_ms <= args.slo_p99_ms), name)
                 _gate(r.summary["completed"] == r.completed, name)
             _gate(ol["identical"], "pipelined ids diverged from sync")
-            print("[smoke] OK")
+            say("[smoke] OK")
         return ol
 
     s = run(args, obs=obs)
 
-    if obs is not None:
+    if obs is not None and is_rank0():
         if args.trace_out:
             obs.export_trace(args.trace_out)
-            print(f"[serve] trace -> {args.trace_out} "
-                  f"(load in ui.perfetto.dev)")
+            say(f"[serve] trace -> {args.trace_out} "
+                f"(load in ui.perfetto.dev)")
         if args.metrics_out:
             obs.export_metrics(args.metrics_out)
-            print(f"[serve] metrics -> {args.metrics_out}")
+            say(f"[serve] metrics -> {args.metrics_out}")
 
     if args.smoke:
-        smoke_gates(args, s, obs)
-        print("[smoke] OK")
+        smoke_gates(args, s, obs if is_rank0() else None)
+        say("[smoke] OK")
     return s
 
 

@@ -193,9 +193,12 @@ class RuntimeBackend:
 
     In a world of several processes (a `ProcessZoneMesh` runtime, or any
     runtime under a process group) every rank runs its frontend and must
-    dispatch the same batches in the same order; each dispatch checks
-    that across the ranks first and raises `RuntimeError` where they
-    differ.
+    dispatch the same batches in the same order.  In lockstep (a closed
+    loop, every rank forming the same batches) each dispatch checks that
+    across the ranks first and raises `RuntimeError` where they differ.
+    Under a controller (`control`, `repro_torch.serve.control`) rank 0
+    announces each dispatch to the other ranks, which dispatch what
+    they receive.
     """
 
     def __init__(self, source, hyperplanes=None, store=None, corpus=None,
@@ -247,6 +250,9 @@ class RuntimeBackend:
         # cache backs the sampled recall probe
         self.tracer = None
         self._exact_vecs: np.ndarray | None = None
+        # the controller of a run across processes (serve.control), set
+        # on every rank while it leads or follows
+        self.control = None
         self._bind()
         self._settle_cost()
 
@@ -489,7 +495,18 @@ class RuntimeBackend:
         batches in flight."""
         distributed = self._rt.is_distributed
         pad = int(q_pad.shape[0])
-        self._batch_guard(q_pad, ex_pad, m)
+        control = self.control
+        if control is None:
+            self._batch_guard(q_pad, ex_pad, m)
+        elif control.leads:
+            control.dispatch(q_pad, ex_pad, m)
+        pending = self._stage(q_pad, ex_pad, m, distributed, pad)
+        if control is not None and control.leads:
+            control.dispatched(pending)
+        return pending
+
+    def _stage(self, q_pad, ex_pad, m, distributed, pad) -> PendingDispatch:
+        """The stage of `dispatch_async` on this rank's own backend."""
         with span_or_null(self.tracer, "serve/stage", pad=pad):
             if distributed and m > self.max_m:
                 raise ValueError(

@@ -11,9 +11,7 @@ thread at a well-defined point.
 
 `ChurnWriter` splits them exactly there: `submit(prep_fn)` hands the
 heavy half to a daemon worker thread (`inline=True` runs it on the spot —
-the deterministic mode the equivalence tests use, and the only one in a
-world of several processes, where a prep's collectives must keep the
-serving thread's order on every rank); the worker queues the
+the deterministic mode the equivalence tests use); the worker queues the
 prepared update kwargs; and the frontend drains that queue through
 `install` at every STAGE BOUNDARY — immediately before a new batch is
 dispatched, never while one is being assembled.  In-flight batches are
@@ -42,6 +40,28 @@ them:
 The port's `insert_batch` / `expire` clone their input store (the JAX
 reference donates it), so a prep may chain from the installed store
 directly.
+
+In a world of several processes every rank builds the writer alike, in
+one order, and its worker runs the same preps from the same seed:
+
+  * a prep's collectives (a mesh runtime's insert, refresh, replicate)
+    go through `runtime`, the backend's runtime over a second set of
+    process groups, made by the first writer of the mesh's layout and
+    reused by the later ones (`ProcessZoneMesh.with_own_groups`), so the
+    worker thread never shares a communicator with the serving thread's
+    collectives;
+  * the install point is rank 0's: at the stage boundary where its jobs
+    up to j are ready it announces "install j" (through the serving
+    run's controller, `repro_torch.serve.control`, or, in a closed loop
+    where every rank reaches the same boundaries, by a broadcast there);
+    every other rank waits for its own jobs up to j, then installs them
+    at that same point (`install_through`).
+
+Concurrent NCCL operations on two communicators can deadlock where the
+ranks launch them in different orders.  Here each communicator is issued
+in one order on every rank (the serving thread's by the controller's
+event stream, the worker's by its job order), but only one card (a
+world of one) has run it; a world of several cards is unproven.
 """
 
 from __future__ import annotations
@@ -53,8 +73,10 @@ import time
 from collections import deque
 
 import torch
+import torch.distributed as tdist
 
-from repro_torch.core.runtime import process_world, require_one_process
+from repro_torch.core.mesh import broadcast0
+from repro_torch.core.runtime import IndexRuntime, process_world
 
 
 def _tensors(x):
@@ -79,16 +101,17 @@ class ChurnWriter:
     two halves; `drain()` blocks until every submitted job is prepared
     AND installed (the end-of-run / deterministic-test barrier).
 
-    `inline=None` (the default) runs inline in a world of several
-    processes and on the worker thread otherwise; `inline=False` there
-    raises (ROADMAP item 6c).
+    `runtime` is the runtime a prep issues its collectives through: the
+    backend's, and on a process mesh with a worker thread the same over
+    the writer's own process groups.
     """
 
-    def __init__(self, frontend, *, inline: bool | None = None):
-        if inline is None:
-            inline = process_world() > 1
-        if not inline:
-            require_one_process("the asynchronous churn writer")
+    def __init__(self, frontend, *, inline: bool = False):
+        rt = frontend.backend.runtime
+        mesh = None if inline or rt.mesh is None else \
+            rt.mesh.with_own_groups()
+        self.runtime = rt if mesh is None or mesh is rt.mesh else \
+            IndexRuntime(rt.cfg, mesh=mesh)
         self._frontend = frontend
         self._inline = inline
         self._ready: deque = deque()  # (kwargs, event or None), in order
@@ -154,16 +177,52 @@ class ChurnWriter:
 
     def install(self, frontend=None) -> int:
         """Install every prepared update — called by the frontend at
-        stage boundaries, on the serving thread.  Returns #installed."""
+        stage boundaries, on the serving thread.  Returns #installed.
+
+        In a world of several processes a worker's updates install on
+        rank 0's word: rank 0 installs what it has ready and announces
+        the last job's index; a rank that follows a controller installs
+        only when that announcement reaches it, and in a closed loop
+        every rank receives it here and installs up to it."""
         if self._error is not None:
             raise RuntimeError("churn writer died") from self._error
         fe = self._frontend if frontend is None else frontend
+        control = fe.backend.control
+        last = self.installed + len(self._ready) - 1
+        if control is not None:  # rank 0 announces; the others follow
+            if not control.leads or last < self.installed:
+                return 0
+            control.install(last)
+        elif self._inline or process_world() == 1:
+            return self._install_upto(fe, last + 1)
+        else:  # a closed loop: every rank is at this boundary
+            last = int(broadcast0(
+                [torch.tensor([last], device=fe.backend.device)]
+                if tdist.get_rank() == 0 else None,
+                [((1,), torch.int64)], fe.backend.device)[0])
+        return self.install_through(last, fe)
+
+    def install_through(self, j: int, frontend=None,
+                        timeout_s: float = 600.0) -> int:
+        """Wait until this writer's jobs up to `j` are prepared, then
+        install those not installed yet, in order (a rank's install at
+        rank 0's announcement).  Returns #installed."""
+        deadline = time.perf_counter() + timeout_s
+        while self.prepared <= j:
+            if self._error is not None:
+                raise RuntimeError("churn writer died") from self._error
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"churn writer: job {j} not prepared "
+                                   f"after {timeout_s} s")
+            time.sleep(0.0005)
+        return self._install_upto(
+            self._frontend if frontend is None else frontend, j + 1)
+
+    def _install_upto(self, fe, count: int) -> int:
+        """Install prepared updates until `count` are installed."""
         n = 0
-        while True:
-            try:
-                kw, done = self._ready.popleft()
-            except IndexError:
-                break
+        while self.installed < count:
+            kw, done = self._ready.popleft()
             if done is not None:
                 serving = torch.cuda.current_stream(self._stream.device)
                 serving.wait_event(done)

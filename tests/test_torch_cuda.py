@@ -4,7 +4,8 @@ layer's use of the card: the pipelined dispatch's CUDA events, a stage
 with no host sync, the churn writer's stream handoff, a batch in
 flight across an update; the LM serving path: the SMOKE models on
 the card against the CPU, a decode loop with no host sync, and the
-index kernels at gemma2-2b's width (D = 2304); and the process mesh
+index kernels at gemma2-2b's width (D = 2304); every grid the autotune
+sweep may pick against the plain versions; and the process mesh
 over NCCL at the one card's world size of 1: its collectives, a search,
 and replicated reads, `kill_node` and a reshard round trip.
 
@@ -28,6 +29,7 @@ from repro_torch.core.corpus import exact_topk_sparse
 from repro_torch.core.engine import EngineConfig, LshEngine
 from repro_torch.core.store import build_store_host
 from repro_torch.data import osn
+from repro_torch.kernels import autotune
 from repro_torch.kernels import bucket_topk as bt
 from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import hamming as hm
@@ -375,6 +377,18 @@ def test_hamming_kernel_matches_plain(dev, n, kc):
     torch.cuda.synchronize()
     assert got.shape == (n, kc)
     assert torch.equal(got, hm.hamming_plain(codes, cand))
+
+
+@pytest.mark.parametrize("op", list(autotune.SWEEP))
+def test_every_autotune_candidate_equals_plain(dev, op):
+    """Each grid the sweep may pick, at the sweep's shapes, gives the
+    plain version's output (simhash: flips only within the 1e-5 band)."""
+    op_cases = autotune.cases(op, dev)
+    for case in op_cases:
+        want = case.plain()
+        for params in autotune.candidates(op):
+            case.check(case.run(params), want)
+
 
 
 # -- the paper's sparse OSN workload ---------------------------------------

@@ -28,7 +28,19 @@ process (the one-process `ZoneMesh`), bit for bit:
     through the writer (inline in a world of several processes) at
     world 4: served ids, recalls and the serving counters;
   * the dispatch guard raising on every rank when one rank is fed
-    another batch, and the refusals of ROADMAP item 6c;
+    another batch;
+  * serving under the controller rank (ROADMAP item 6c) at worlds 2, 4
+    and 2 data rows of 2 ranks: `serve_retrieval.run_openloop` (rank 0
+    runs the wall-clock schedule and announces every batch) and a
+    threaded `ChurnWriter` whose preps run the mesh's insert, expire and
+    cache refresh over the writer's own process groups while rank 0
+    serves and installs each job at whichever stage boundary finds it
+    ready: every rank's served ids equal rank 0's, and rank 0's recorded
+    event stream, replayed through a one-process backend, gives the same
+    ids exactly; `run_serve_churn` through the threaded writer (closed
+    loop, the install point agreed at each stage boundary) gives JAX's
+    `run_churn` recalls; the open-loop CLI under `torch.distributed.run`
+    prints one summary, on rank 0;
   * the churn CLIs under `torch.distributed.run` with 2 gloo ranks,
     printing what one process prints.
 
@@ -61,14 +73,15 @@ from repro.core.store import build_store_host as j_build_store_host
 from repro_torch import convert
 from repro_torch.launch import failure_churn as failure_cli
 from repro_torch.launch import node_churn as node_cli
+from torch_parity_rules import race_free_announces
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, D, K, L, M, NQ = 1200, 32, 5, 3, 10, 48
 LAYOUTS = {"w2": dict(world=2, data=1), "w4": dict(world=4, data=1),
            "w4-d2": dict(world=4, data=2)}
-PARTS = {"w2": ("rep", "churn", "guard"),
-         "w4": ("rep", "reshard", "churn", "serve", "guard"),
-         "w4-d2": ("rep", "prefix")}
+PARTS = {"w2": ("rep", "churn", "guard", "serve6c"),
+         "w4": ("rep", "reshard", "churn", "serve", "guard", "serve6c"),
+         "w4-d2": ("rep", "prefix", "serve6c")}
 SERVE = dict(failure=dict(num_users=1200, dim=32, k=5, L=2, capacity=64,
                           epochs=6, num_queries=64, update_rate=0.1,
                           churn_rate=0.03, refresh_every=2, seed=3),
@@ -164,11 +177,13 @@ def world(tmp_path_factory, jax_refs):
                              jparams.num_buckets, capacity=64, payload=vecs)
     churn_hp = np.asarray(jchurn._lsh_setup(
         jchurn.ChurnConfig(**churn_tests.CFG))[1])
+    serve_hp = np.asarray(jchurn._lsh_setup(
+        jchurn.ChurnConfig(**SERVE["churn"]))[1])
     path = worker.save_p2p_world(
         str(tmp_path_factory.mktemp("p2p") / "world.npz"),
         JParams(d=D, k=K, L=L, seed=23), convert.hyperplanes_from(
             jh, device="cpu"), convert.store_from(jst, device="cpu"),
-        vecs[:NQ], targets, churn_hp)
+        vecs[:NQ], targets, churn_hp, serve_hp)
     return dict(path=path, w=worker.load_p2p_world(path))
 
 
@@ -362,6 +377,9 @@ def test_serve_lifecycles_equal_one_process(ranks, one_process, tag):
 
 @pytest.mark.parametrize("layout", ["w2", "w4"])
 def test_dispatch_guard_and_item_6c_refusals(ranks, layout):
+    """The guard raises on every rank fed another batch; the two paths
+    item 6c refused before its controller rank (open-loop serving, the
+    threaded writer) run, and every rank serves rank 0's ids."""
     outs = ranks(layout)
     for rank_out in outs:
         np.testing.assert_array_equal(rank_out["guard/same_ids"],
@@ -369,10 +387,97 @@ def test_dispatch_guard_and_item_6c_refusals(ranks, layout):
         guard = str(rank_out["raises/guard"])
         assert guard.startswith("RuntimeError: ranks dispatch different "
                                 "batches"), guard
+        assert bool(rank_out["openloop/identical"])
+        assert float(rank_out["openloop/rate"]) == float(
+            outs[0]["openloop/rate"])
         for what in ("openloop", "writer"):
-            msg = str(rank_out[f"raises/{what}"])
-            assert msg.startswith("NotImplementedError") and \
-                "ROADMAP item 6c" in msg, msg
+            np.testing.assert_array_equal(rank_out[f"{what}/ids"],
+                                          outs[0][f"{what}/ids"], what)
+        assert int(rank_out["writer/installed"]) == worker.WRITER_JOBS
+        assert bool(rank_out["writer/own_groups"])
+
+
+# -- serving under the controller rank (ROADMAP item 6c) -------------------
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_open_loop_under_the_controller_equals_its_replay(ranks, layout):
+    """Every rank serves rank 0's batches, and rank 0's recorded stream
+    through the one-process engine backend gives its ids and scores
+    exactly."""
+    from repro_torch.launch import serve_retrieval as sr
+
+    outs = ranks(layout)
+    args = worker.openloop_args()
+    frontend, _, _, _ = sr.build_frontend(args,
+                                          np.random.default_rng(args.seed))
+    got, got_s = worker.replay(outs[0], "openloop", frontend.backend,
+                               scores=True)
+    np.testing.assert_array_equal(outs[0]["openloop/scores"], got_s)
+    assert got.shape[0] == outs[0]["openloop/q"].shape[0] > args.queries // 4
+    for rank_out in outs:
+        np.testing.assert_array_equal(rank_out["openloop/ids"], got)
+        assert bool(rank_out["openloop/identical"])
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_threaded_writer_under_the_controller_equals_its_replay(
+        ranks, world, layout):
+    """The writer's preps (insert, expire, cache refresh over its own
+    process groups) installed where rank 0 found them ready: every
+    rank's ids equal rank 0's, and the one-process mesh fed rank 0's
+    stream (each job prepared in order, installed at its recorded point)
+    gives them and rank 0's scores exactly."""
+    outs = ranks(layout)
+    stream = outs[0]
+    assert int(stream["writer/kinds"].sum()) >= 1
+    assert list(stream["writer/arg"][stream["writer/kinds"]])[-1] == \
+        worker.WRITER_JOBS - 1
+    fe, backend, prep, _ = worker.writer_world(world["w"],
+                                               LAYOUTS[layout]["data"])
+    updates = [prep(backend.runtime, j) for j in range(worker.WRITER_JOBS)]
+    got, got_s = worker.replay(stream, "writer", backend, updates,
+                               scores=True)
+    np.testing.assert_array_equal(stream["writer/scores"], got_s)
+    for rank_out in outs:
+        np.testing.assert_array_equal(rank_out["writer/ids"], got)
+        assert int(rank_out["writer/installed"]) == worker.WRITER_JOBS
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_threaded_writer_lifecycle_recalls_equal_jax_run_churn(ranks,
+                                                                layout):
+    """`run_serve_churn` through the threaded writer on every rank gives
+    JAX's `run_churn` recalls exactly, and every rank rank 0's ids."""
+    jcfg = jchurn.ChurnConfig(**SERVE["churn"])
+    with pytest.MonkeyPatch.context() as mp:
+        race_free_announces(mp, jchurn)
+        ref = jchurn.run_churn(jcfg)
+    outs = ranks(layout)
+    for rank_out in outs:
+        np.testing.assert_array_equal(rank_out["serve-threaded/recalls"],
+                                      ref["recalls"])
+        np.testing.assert_array_equal(rank_out["serve-threaded/ids"],
+                                      outs[0]["serve-threaded/ids"])
+        assert int(rank_out["serve-threaded/repeat_mismatches"]) == 0
+        assert int(rank_out["serve-threaded/writer_installed"]) == int(
+            SERVE["churn"]["epochs"]) // 2 + 1
+
+
+def test_open_loop_cli_under_torchrun_prints_one_summary():
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m",
+         "repro_torch.launch.serve_retrieval", "--smoke", "--open-loop",
+         "--device", "cpu", "--pipeline", "4"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert sum(s.startswith("[openloop] batch service") for s in lines) == 1
+    assert [s for s in lines if "served ids" in s] == [
+        "[openloop] sync == pipelined served ids: bit-identical"]
+    assert lines.count("[smoke] OK") == 1
 
 
 # -- the churn CLIs under torchrun ----------------------------------------

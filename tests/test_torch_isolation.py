@@ -39,7 +39,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     # package, core + 17 modules (analysis, churn, layered and metrics
     # among them), kernels + 7 modules, launch + mesh + the node_churn,
     # failure_churn, serve_retrieval and serve (LM) CLIs, obs + flight,
-    # registry and trace, data + osn, convert, serve + frontend,
+    # registry and trace, data + osn, convert, serve + control, frontend,
     # lifecycle, loadgen, qcache, telemetry and writer, models + config,
     # layers and model, configs + shapes and the ten arch files
     assert int(n) >= 63
@@ -54,7 +54,7 @@ def test_port_imports_without_jax_or_the_jax_package():
            "repro_torch.models.layers", "repro_torch.models.model"])
     assert serve.strip() == str([
         "repro_torch.launch.serve", "repro_torch.launch.serve_retrieval",
-        "repro_torch.serve",
+        "repro_torch.serve", "repro_torch.serve.control",
         "repro_torch.serve.frontend", "repro_torch.serve.lifecycle",
         "repro_torch.serve.loadgen", "repro_torch.serve.qcache",
         "repro_torch.serve.telemetry", "repro_torch.serve.writer"])
@@ -124,3 +124,42 @@ def test_p2p_process_mesh_modules_import_without_jax():
                           env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] []"
+
+
+ITEM7_PROBE = textwrap.dedent("""
+    import importlib, importlib.util, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    for name in ("repro_torch.kernels.autotune", "repro_torch.serve.control"):
+        importlib.import_module(name)
+    for path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location("example", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    leaked = sorted(n for n in sys.modules
+                    if n == "repro" or n.startswith("repro."))
+    print(leaked)
+""")
+
+
+def test_examples_autotune_and_controller_import_without_jax():
+    """`examples/torch_quickstart.py`, `examples/torch_retrieval_serve.py`,
+    `kernels/autotune.py` and `serve/control.py` load with jax
+    unimportable and pull in nothing of `repro`; none of their sources
+    names jax or the JAX package in an import."""
+    root = os.path.dirname(SRC)
+    examples = [os.path.join(root, "examples", f"torch_{n}.py")
+                for n in ("quickstart", "retrieval_serve")]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"EXAMPLES = {examples!r}\n" + ITEM7_PROBE],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for path in examples + [
+            os.path.join(SRC, "repro_torch", "kernels", "autotune.py"),
+            os.path.join(SRC, "repro_torch", "serve", "control.py")]:
+        with open(path) as f:
+            for line in f:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]):
+                    assert words[1].split(".")[0] not in ("jax", "repro"), \
+                        (path, line)

@@ -17,8 +17,11 @@ The jobs:
     and `reshard` give on a mesh of one node a rank;
   * `p2p`: the P2P cells of `p2p_cells` (replicated reads, kills, a
     reshard round trip through the prefix meshes, the churn drivers,
-    the serve lifecycles and the refusals), the same function the test
-    runs in one process.
+    the serve lifecycles, the dispatch guard, and serving under the
+    controller rank: open-loop serving, a threaded writer whose preps
+    issue the mesh's collectives, and the threaded writer of
+    `run_serve_churn`), the same function the test runs in one
+    process.
 
 This module imports torch and the port only, never jax, so that a
 spawned rank starts quickly.
@@ -278,15 +281,16 @@ def rep_tag(R: int, mode: str, dead: tuple, fused: str) -> str:
 
 
 def save_p2p_world(path: str, params, h, store: BucketStore, q, targets,
-                   churn_hp) -> str:
+                   churn_hp, serve_hp) -> str:
     """The goldens world of tests/test_torch_failure.py as `p2p` loads it,
-    with the JAX hyperplanes of the churn configuration."""
+    with the JAX hyperplanes of the churn and the serving churn
+    configurations."""
     np.savez(path, params=np.asarray([params.d, params.k, params.L,
                                       params.seed]),
              h=h.numpy(), ids=store.ids.numpy(), ts=store.timestamps.numpy(),
              ptr=store.write_ptr.numpy(), payload=store.payload.numpy(),
              gen=store.generation.numpy(), q=q, targets=targets,
-             churn_hp=churn_hp)
+             churn_hp=churn_hp, serve_hp=serve_hp)
     return path
 
 
@@ -296,7 +300,8 @@ def load_p2p_world(path: str) -> dict:
     return dict(params=LshParams(d=d, k=k, L=L, seed=seed), h=z["h"],
                 store=BucketStore(z["ids"], z["ts"], z["ptr"], z["payload"],
                                   z["gen"]),
-                q=z["q"], targets=z["targets"], churn_hp=z["churn_hp"])
+                q=z["q"], targets=z["targets"], churn_hp=z["churn_hp"],
+                serve_hp=z["serve_hp"])
 
 
 def _rep_cell(w: dict, mesh, R: int, mode: str, dead: tuple,
@@ -491,22 +496,27 @@ def _serve_cells(serve_cfg: dict) -> dict:
             churn=ChurnConfig(**serve_cfg["churn"]), query_repeats=2,
             max_batch=16, queue_capacity=64, use_writer=True),
             device="cpu"))
-    for tag, run in runs.items():
-        with served_ids() as ids:
-            flat_result(f"serve-{tag}", run(), out)
-        out[f"serve-{tag}/ids"] = np.concatenate(ids)
+    from repro_torch.serve import lifecycle
+
+    real = lifecycle.ChurnWriter
+    # the writer inline (prepared on the spot), as these cells ran it
+    # before the threaded writer ran on a world of several processes;
+    # `_serve_churn_threaded` runs it threaded
+    lifecycle.ChurnWriter = lambda fe: real(fe, inline=True)
+    try:
+        for tag, run in runs.items():
+            with served_ids() as ids:
+                flat_result(f"serve-{tag}", run(), out)
+            out[f"serve-{tag}/ids"] = np.concatenate(ids)
+    finally:
+        lifecycle.ChurnWriter = real
     return out
 
 
-def _guard_and_refusals(w: dict) -> dict:
+def _guard(w: dict) -> dict:
     """A rank fed another batch makes the dispatch guard raise on every
-    rank; open-loop serving and an asynchronous writer refuse a world of
-    several processes."""
-    from types import SimpleNamespace
-
-    from repro_torch.launch import serve_retrieval
+    rank."""
     from repro_torch.serve import RuntimeBackend
-    from repro_torch.serve.writer import ChurnWriter
 
     out = {}
     rt = IndexRuntime(RuntimeConfig(params=w["params"], n_nodes=4, m=11,
@@ -521,16 +531,184 @@ def _guard_and_refusals(w: dict) -> dict:
     out["guard/same_ids"] = ids
     if dist.get_rank() == dist.get_world_size() - 1:
         q = q[::-1].copy()
-    for what, fn in (
-            ("guard", lambda: backend.dispatch(q, ex, 10)),
-            ("openloop", lambda: serve_retrieval.run_openloop(
-                SimpleNamespace(seed=0))),
-            ("writer", lambda: ChurnWriter(None, inline=False))):
-        try:
-            fn()
-            out[f"raises/{what}"] = np.asarray("")
-        except (RuntimeError, NotImplementedError) as e:
-            out[f"raises/{what}"] = np.asarray(f"{type(e).__name__}: {e}")
+    try:
+        backend.dispatch(q, ex, 10)
+        out["raises/guard"] = np.asarray("")
+    except RuntimeError as e:
+        out["raises/guard"] = np.asarray(f"{type(e).__name__}: {e}")
+    return out
+
+
+# -- serving under the controller rank (ROADMAP item 6c) ---------------------
+
+WRITER_JOBS = 3
+
+
+def openloop_args(*argv: str):
+    """The serve_retrieval CLI's open-loop smoke arguments, on the CPU."""
+    from repro_torch.launch import serve_retrieval as sr
+
+    args = sr.build_parser().parse_args(
+        ["--smoke", "--open-loop", "--device", "cpu", "--pipeline", "4",
+         *argv])
+    sr.smoke_preset(args)
+    return args
+
+
+def stream_arrays(tag: str, control) -> dict:
+    """A controlled run's event stream as npz arrays under `tag`: rank 0
+    its recorded stream (each dispatch's served ids and scores), a
+    follower the ids of the dispatches it ran."""
+    if not control.leads:
+        return {f"{tag}/ids": np.concatenate(control.served)}
+    rec = control.recorded()
+    disp = [e for e in rec if e[0] == "dispatch"]
+    return {f"{tag}/kinds": np.asarray([e[0] == "install" for e in rec]),
+            f"{tag}/arg": np.asarray([e[1].shape[0] if e[0] == "dispatch"
+                                      else e[1] for e in rec]),
+            f"{tag}/m": np.asarray([e[3] if e[0] == "dispatch" else 0
+                                    for e in rec]),
+            f"{tag}/q": np.concatenate([e[1] for e in disp]),
+            f"{tag}/ex": np.concatenate([e[2] for e in disp]),
+            f"{tag}/ids": np.concatenate([e[4] for e in disp]),
+            f"{tag}/scores": np.concatenate([e[5] for e in disp])}
+
+
+def replay(stream: dict, tag: str, backend, updates=(),
+           scores: bool = False):
+    """Rank 0's recorded stream `tag` through `backend` in one process:
+    each dispatch in turn, and at each install the prepared `updates`
+    up to its job.  Returns the dispatches' ids, concatenated (with
+    `scores`: ids and scores)."""
+    got, got_s, done, row = [], [], 0, 0
+    for install, arg, m in zip(stream[f"{tag}/kinds"], stream[f"{tag}/arg"],
+                               stream[f"{tag}/m"]):
+        if install:
+            while done <= arg:
+                backend.update(**updates[done])
+                done += 1
+            continue
+        q = stream[f"{tag}/q"][row:row + arg]
+        ex = stream[f"{tag}/ex"][row:row + arg]
+        row += arg
+        ids, sc, _ = backend.dispatch(q, ex, int(m))
+        got.append(ids)
+        got_s.append(sc)
+    if scores:
+        return np.concatenate(got), np.concatenate(got_s)
+    return np.concatenate(got)
+
+
+def writer_world(w: dict, data: int = 1, device="cpu",
+                 use_kernels: bool | None = None):
+    """A 4-node cnb mesh (`make_zone_mesh`: this rank's process mesh
+    under a process group) on `device` behind a depth-2 frontend:
+    (frontend, backend, the prep of write job j on a runtime, the
+    queries).  On a card the mesh steps take their kernels, unless
+    `use_kernels` is False."""
+    from repro_torch.serve import FrontendConfig, RetrievalFrontend, \
+        RuntimeBackend
+
+    dev = torch.device(device)
+    rt = IndexRuntime(RuntimeConfig(params=w["params"], n_nodes=4, m=11,
+                                    variant="cnb", cap_factor=4.0,
+                                    use_kernels=dev.type == "cuda"
+                                    if use_kernels is None
+                                    else use_kernels),
+                      mesh=mesh_mod.make_zone_mesh(4, data, device=dev))
+    st = rt.shard_store(w["store"])
+    backend = RuntimeBackend(rt, hyperplanes=w["h"], store=st,
+                             cache=rt.refresh_cache(st))
+    fe = RetrievalFrontend(backend, FrontendConfig(
+        m=10, max_batch=8, queue_capacity=64, pipeline_depth=2))
+    state = dict(store=st)
+
+    def prep(runtime, j: int) -> dict:
+        """Write job j: re-announce 64 moved users (insert), expire, and
+        the CNB cache refresh, each a collective of `runtime`'s mesh;
+        chained on the previous job's store."""
+        g = torch.Generator().manual_seed(100 + j)
+        vecs = torch.nn.functional.normalize(
+            torch.randn((64, w["h"].shape[-1]), generator=g), dim=1).to(dev)
+        ids = torch.randint(0, 1200, (64,), generator=g,
+                            dtype=torch.int32).to(dev)
+        s = runtime.insert(w["h"], state["store"], vecs, ids, 5 + j)
+        s = runtime.expire(s, 5 + j, ttl=8)
+        state["store"] = s
+        return dict(store=s, cache=runtime.refresh_cache(s))
+
+    q = w["q"].cpu().numpy()
+    return fe, backend, prep, q
+
+
+def writer_under_control(w: dict, data: int = 1, device="cpu",
+                         keep: list | None = None) -> dict:
+    """Serving under the controller with a threaded writer on the process
+    mesh: rank 0 submits 4 queries a tick, pumps, and hands the writer
+    a job at ticks 2, 5 and 8 (installed at whichever stage boundary
+    finds it ready); the followers submit the same jobs at once and
+    serve what rank 0 announces.  `keep` (a list) receives the serving
+    backend."""
+    from repro_torch.serve.control import Controller
+    from repro_torch.serve.writer import ChurnWriter
+
+    fe, backend, prep, q = writer_world(w, data, device)
+    control = Controller.of_world()
+    writer = ChurnWriter(fe)
+    try:
+        if not control.leads:
+            for j in range(WRITER_JOBS):
+                writer.submit(lambda j=j: prep(writer.runtime, j))
+            control.follow(backend, writer)
+        else:
+            with control.leading(backend):
+                jobs = iter(range(WRITER_JOBS))
+                for t in range(q.shape[0] // 4):
+                    for i in range(4 * t, 4 * t + 4):
+                        fe.submit(q[i], exclude=i)
+                    if t in (2, 5, 8):
+                        j = next(jobs)
+                        writer.submit(lambda j=j: prep(writer.runtime, j))
+                    fe.pump()
+                fe.flush()
+                writer.drain(timeout_s=300.0)
+        out = stream_arrays("writer", control)
+        out["writer/installed"] = np.asarray(writer.installed)
+        out["writer/own_groups"] = np.asarray(
+            writer.runtime.mesh.world_group is not None
+            and writer.runtime.mesh is not backend.runtime.mesh)
+        if keep is not None:
+            keep.append(backend)
+    finally:
+        writer.close()
+    return out
+
+
+def _serve_churn_threaded(serve_cfg: dict, hp) -> dict:
+    """`run_serve_churn` through the threaded writer (its default), in a
+    closed loop on every rank, on the JAX hyperplanes `hp`."""
+    from repro_torch.core.churn import ChurnConfig
+    from repro_torch.serve import ServeChurnConfig, run_serve_churn
+
+    out = {}
+    with served_ids() as ids:
+        flat_result("serve-threaded", run_serve_churn(ServeChurnConfig(
+            churn=ChurnConfig(**serve_cfg["churn"]), query_repeats=2,
+            max_batch=16, queue_capacity=64, pipeline_depth=4,
+            use_writer=True), device="cpu", hyperplanes=hp), out)
+    out["serve-threaded/ids"] = np.concatenate(ids)
+    return out
+
+
+def _serve_6c(w: dict, data: int, serve_cfg: dict) -> dict:
+    from repro_torch.launch import serve_retrieval
+
+    ol = serve_retrieval.run_openloop(openloop_args())
+    out = stream_arrays("openloop", ol["control"])
+    out["openloop/identical"] = np.asarray(ol["identical"])
+    out["openloop/rate"] = np.asarray(ol["rate"])
+    out.update(writer_under_control(w, data))
+    out.update(_serve_churn_threaded(serve_cfg, w["serve_hp"]))
     return out
 
 
@@ -562,7 +740,9 @@ def p2p_cells(w: dict, parts, data: int = 1, churn_cfg=None,
     if "serve" in parts:
         out.update(_serve_cells(serve_cfg))
     if "guard" in parts:
-        out.update(_guard_and_refusals(w))
+        out.update(_guard(w))
+    if "serve6c" in parts:
+        out.update(_serve_6c(w, data, serve_cfg))
     return out
 
 
