@@ -194,7 +194,30 @@ failure:
      `IndexRuntime(use_kernels=True)` dot search likewise against its
      plain path, contains of each query's own id, failing on a miss;
      simhash, bucket_topk, fused_query and fused_contains held against
-     plain on the inputs the path recorded);
+     plain on the inputs the path recorded); then the recurrent mixers
+     and MoE, bf16 weights from `--seed` at the published widths, each
+     model freed before the next: lm_xlstm (xlstm-1.3b whole, 48
+     blocks: 8 x 512 + 32 through `generate`, printed as lm_gemma2, and
+     the sLSTM time loop's host ms a step at the prefill's shape);
+     lm_xlstm_long (long_500k: batch 1, a 1024-token prompt, 16 decode
+     steps at 524 272-524 287, failing unless their logits equal the
+     steps at 1024-1039 and the peak bytes agree within 1 %; the state's
+     bytes); lm_embed_index_xlstm (lm_embed_index's recipe on
+     xlstm-1.3b: 4096 users in 128 communities, path `lm`; contains
+     must find every own id its exact buckets still hold, and the count
+     ring-evicted is printed); lm_moe (deepseek-moe-16b whole, 8 x 512 +
+     32), lm_hybrid (jamba-v0.1-52b cut 32 -> 8 layers, 4 x 256 + 16,
+     and one mamba layer's working set) and lm_llama4
+     (llama4-maverick-400b-a17b cut 48 -> 2 layers, 4 x 64 + 16), each
+     with its capacities, its dropped (token, expert) pairs a step, and
+     the decode step beside two bounds (all expert bytes, and the active
+     parameters' bytes); lm_check's teacher-forced gate (<= 1e-3) on each
+     of the four archs cut to 2 layers with the MoE layers dropless (the
+     cells' own models read beside it, ungated: random weights amplify
+     rounding with depth in xLSTM), and xlstm-1.3b / deepseek-moe-16b
+     cut to 2 layers on the card against the CPU (forward logits <= 1e-3;
+     MoE expert ids equal but where the CPU's k-th and (k+1)-th router
+     probabilities lie within 1e-6);
  15. [examples] (path `examples`): `examples/torch_quickstart.py` and
      `examples/torch_retrieval_serve.py` run on the card and on the CPU
      (`run(device=...)`), their printed tables equal up to the near-tie
@@ -2684,8 +2707,8 @@ def main() -> int:
         tokens, all in [0, vocab).  Prints the timed run's prefill ms,
         median decode step ms and tokens/s beside the bounds:
         the decode step's weight bytes over the memory rate, and the
-        prefill's 2 x params x prompt tokens over the bf16 and fp32
-        peaks."""
+        prefill's 2 x active params x prompt tokens over the bf16 and fp32
+        peaks.  Returns the median decode step ms."""
         cfg = model.cfg
         prompt = sum(batch[k].shape[1] for k in ("tokens", "prefix_embeds")
                      if k in batch)
@@ -2702,8 +2725,10 @@ def main() -> int:
         rate = b * gen / wall * 1e3
         dec_b = weight_bytes(model) / HBM_BYTES_PER_S * 1e3
         n_tok = b * prompt
-        pre_b16 = 2.0 * count_params(cfg) * n_tok / BF16_FLOPS_PER_S * 1e3
-        pre_b32 = 2.0 * count_params(cfg) * n_tok / FP32_FLOPS_PER_S * 1e3
+        # the active parameters (an MoE's top-k experts; all, when dense)
+        act = count_params(cfg, active_only=True)
+        pre_b16 = 2.0 * act * n_tok / BF16_FLOPS_PER_S * 1e3
+        pre_b32 = 2.0 * act * n_tok / FP32_FLOPS_PER_S * 1e3
         log(f"[lm] {name}: {cfg.name} batch {b} prompt "
             f"{batch['tokens'].shape[1]} gen {gen}: prefill {pre_ms:.3f} ms "
             f"(bound {pre_b16:.3f} ms at the bf16 peak, {pre_b32:.3f} ms at "
@@ -2712,6 +2737,7 @@ def main() -> int:
             f"bound {dec_b:.3f} ms: {weight_bytes(model)} weight bytes over "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {rate:.1f} tokens/s, wall "
             f"{wall:.1f} ms ({smi})")
+        return med
 
     def teacher_forced(model, b, s, steps):
         """Max |prefill + decode_step logits - forward logits| at the same
@@ -2733,6 +2759,38 @@ def main() -> int:
             errs.append((lg - want[:, t + 1]).abs().max())
         return float(torch.stack(errs).max())
 
+    def lm_step_profile(name, model, batch, gen):
+        """One decode step traced on a state of the prompt: device ops a
+        step and the busy share."""
+        prompt = batch["tokens"].shape[1]
+        logits, states = lm.prefill(model, batch, prompt + gen + 8)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        decode = lm_serve.make_decode_step(model.cfg)
+        decode(model, states, tok, prompt)
+        rows, wall, _ = profile_batch(
+            torch, f"{name} decode step",
+            lambda: decode(model, states, tok, prompt + 1), top=12)
+        busy = sum(r[0] for r in rows)
+        ops_n = sum(r[1] for r in rows)
+        log(f"[lm] {name} decode step: {ops_n} device ops (kernels and "
+            f"copies) a step, {ops_n / model.cfg.num_layers:.1f} a layer; "
+            f"busy share {busy / wall:.3f}: "
+            f"{'host-bound' if busy / wall < 0.5 else 'device-bound'}")
+
+    def lm_no_sync(name, model, batch, gen):
+        """Prefill and 7 decode steps under sync-debug "error"."""
+        prompt = batch["tokens"].shape[1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm_serve.generate(model, batch, steps=8,
+                              max_len=prompt + gen + 8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[lm] {name}: prefill and 7 decode steps ran under "
+            f"set_sync_debug_mode('error'): no host sync")
+
     gemma = get_config("gemma2-2b")
     lm_wall = time.perf_counter()
     with lm_cell("lm_gemma2"):
@@ -2743,31 +2801,8 @@ def main() -> int:
             f"is a numpy f64 scalar, which promotes bf16)")
         batch = lm_serve.make_batch(gemma, 8, 512, args.seed, dev)
         lm_serve_run("lm_gemma2", g16, batch, 64)
-        # one decode step traced, on a state of the prompt
-        max_len = 512 + 64 + 8
-        logits, states = lm.prefill(g16, batch, max_len)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        decode = lm_serve.make_decode_step(gemma)
-        decode(g16, states, tok, 512)
-        rows, wall, _ = profile_batch(torch, "lm_gemma2 decode step",
-                                      lambda: decode(g16, states, tok, 513),
-                                      top=12)
-        busy = sum(r[0] for r in rows)
-        launches = sum(r[1] for r in rows)
-        log(f"[lm] lm_gemma2 decode step: {launches} device ops (kernels and "
-            f"copies) a step, {launches / gemma.num_layers:.1f} a layer; "
-            f"busy share {busy / wall:.3f}: "
-            f"{'host-bound' if busy / wall < 0.5 else 'device-bound'}")
-        del logits, states
-        # the decode loop makes no host sync: any sync raises here
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            lm_serve.generate(g16, batch, steps=8, max_len=max_len)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        log("[lm] lm_gemma2: prefill and 7 decode steps ran under "
-            "set_sync_debug_mode('error'): no host sync")
+        lm_step_profile("lm_gemma2", g16, batch, 64)
+        lm_no_sync("lm_gemma2", g16, batch, 64)
     with lm_cell("lm_gemma2_long"):
         batch = lm_serve.make_batch(gemma, 1, 5120, args.seed, dev)
         chunked = []
@@ -2842,27 +2877,37 @@ def main() -> int:
             if err > 1e-3:
                 raise AssertionError(f"lm_archs {arch}: teacher-forced error "
                                      f"{err} > 1e-3")
-    with lm_cell("lm_embed_index"):
-        g16 = lm.init_model(gemma, args.seed, device=dev)
-        U, SEQ, N_COMM, PRE, NQ_LM, CAP_LM = 8192, 64, 256, 32, 1024, 64
+    def embed_index(name, model, U, N_COMM):
+        """DESIGN.md Sec. 4 at full width: U users of 64 tokens in N_COMM
+        communities sharing a 32-token prefix, embedded by `model` in
+        batches of 256 (mean-pooled final hidden, unit-normalised),
+        indexed (k = 10, L = 4, C = 64) and searched (cnb, m = 10, own id
+        excluded) through the kernels on path `lm`: the same-community
+        share, the kernel ids against plain, contains hitting every own
+        id its L exact buckets still hold (a bucket keeps its last C
+        writers); the kernels held against plain on the recorded
+        inputs.  Returns how many of the queries' own ids contains
+        found."""
+        cfg = model.cfg
+        SEQ, PRE, NQ_LM, CAP_LM = 64, 32, 1024, 64
         rng_lm = np.random.default_rng(args.seed)
         comm = rng_lm.integers(0, N_COMM, U)
-        toks = rng_lm.integers(0, gemma.vocab_size, (U, SEQ))
-        toks[:, :PRE] = rng_lm.integers(0, gemma.vocab_size,
+        toks = rng_lm.integers(0, cfg.vocab_size, (U, SEQ))
+        toks[:, :PRE] = rng_lm.integers(0, cfg.vocab_size,
                                         (N_COMM, PRE))[comm]
         toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         parts = []
         for s0 in range(0, U, 256):
-            hidden = lm.forward(g16, {"tokens": toks[s0:s0 + 256]})
+            hidden = lm.forward(model, {"tokens": toks[s0:s0 + 256]})
             e = hidden.mean(dim=1).float()
             parts.append(e / torch.linalg.vector_norm(e, dim=1, keepdim=True))
         emb = torch.cat(parts)
         torch.cuda.synchronize()
         embed_ms = (time.perf_counter() - t0) * 1e3 / (U // 256)
-        del g16, hidden, parts
-        lshp = LshParams(d=gemma.d_model, k=10, L=4, seed=args.seed)
+        del hidden, parts
+        lshp = LshParams(d=cfg.d_model, k=10, L=4, seed=args.seed)
         h_lm = make_hyperplanes(lshp, device=dev)
         qi = torch.arange(NQ_LM, device=dev)
         ex_np = np.arange(NQ_LM)
@@ -2921,14 +2966,15 @@ def main() -> int:
         stored = (st_lm.ids[torch.arange(lshp.L, device=dev)[None, :], own]
                   == qi[:, None, None]).any(-1).any(-1)
         if not torch.equal(hits, stored | hits):
-            raise AssertionError("lm_embed_index: contains missed a stored "
+            raise AssertionError(f"{name}: contains missed a stored "
                                  "own id")
-        log(f"[lm] lm_embed_index: {U} users of {SEQ} tokens in {N_COMM} "
+        log(f"[lm] {name}: {cfg.name}, {U} users of {SEQ} tokens in {N_COMM} "
             f"communities sharing a {PRE}-token prefix; embed "
             f"{embed_ms:.1f} ms per 256 users; index (simhash sketch + "
             f"build_store_host, k=10 L=4 C={CAP_LM}) {times['build_ms']:.1f} "
             f"ms, bucket occupancy mean {float(occ_lm.float().mean()):.2f} "
-            f"max {int(occ_lm.max())}; {NQ_LM} queries: engine cnb "
+            f"max {int(occ_lm.max())}, |mean unit embedding| "
+            f"{float(emb.mean(0).norm()):.4f}; {NQ_LM} queries: engine cnb "
             f"{times['engine_search_ms']:.2f} ms, runtime dot "
             f"{times['runtime_search_ms']:.2f} ms, contains "
             f"{times['contains_ms']:.2f} ms a batch; same-community share "
@@ -2937,10 +2983,7 @@ def main() -> int:
             f"{n_hit} of {NQ_LM}, {NQ_LM - int(stored.sum())} own ids "
             f"ring-evicted from all L buckets ({smi})")
         if share <= 0.6:
-            raise AssertionError(f"lm_embed_index: community share {share}")
-        if n_hit != NQ_LM:
-            raise AssertionError(f"lm_embed_index: {NQ_LM - n_hit} own ids "
-                                 f"missed by contains")
+            raise AssertionError(f"{name}: community share {share}")
         with uncounted():
             hold_at_path_shapes("lm", lambda: (
                 eng.search(emb[:NQ_LM], m=M, exclude=ex_np),
@@ -2948,6 +2991,297 @@ def main() -> int:
                 rt_lm.contains(h_lm, st_lm, emb[:NQ_LM], qi)),
                 ("simhash", "bucket_topk", "fused_query", "fused_contains"))
         del st_lm, ids_lm, eng, rt_lm, emb, plain_eng, rt_plain
+        return n_hit
+
+    with lm_cell("lm_embed_index"):
+        g16 = lm.init_model(gemma, args.seed, device=dev)
+        n_hit = embed_index("lm_embed_index", g16, 8192, 256)
+        del g16
+        if n_hit != 1024:
+            raise AssertionError(f"lm_embed_index: {1024 - n_hit} own ids "
+                                 f"missed by contains")
+    # -- 14, the recurrent mixers and MoE: xlstm-1.3b, deepseek-moe-16b,
+    # jamba-v0.1-52b and llama4-maverick-400b-a17b, bf16 weights from
+    # --seed at the published widths (jamba and llama4 cut in depth)
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models import ssm as lm_ssm
+    from repro_torch.models import xlstm as lm_xlstm
+
+    new_wall = time.perf_counter()
+
+    @contextlib.contextmanager
+    def dropless(model):
+        """The MoE layers' capacity factor raised to E / k: cap covers
+        every token, so prefill, decode and forward, which route different
+        token counts (and so drop differently at the configured factor),
+        compute the same function."""
+        cfg = model.cfg
+        saved = [(m, m.cfg) for m in model.modules()
+                 if isinstance(m, lm_moe.Moe)]
+        for m, c in saved:
+            m.cfg = dataclasses.replace(
+                c, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+        try:
+            yield
+        finally:
+            for m, c in saved:
+                m.cfg = c
+
+    def lm_teacher_check(name, model):
+        """lm_check's teacher-forced gate, 2 x 64 prompt + 8 steps, MoE
+        layers dropless, every product after the embedding in f32: gated
+        on the arch at full width cut to 2 layers (bf16 weights from
+        --seed, as lm_archs cuts), and read ungated on the cell's own
+        model.  Random weights amplify f32 rounding with depth in the
+        recurrent stacks: xlstm's teacher-forced error on the CPU is
+        7e-6 at 2 blocks, 7.6e-4 at 16 and 0.78 at 48."""
+        cfg = model.cfg
+        with dropless(model):
+            deep = teacher_forced(model, 2, 64, 8)
+        cut_cfg = dataclasses.replace(cfg, num_layers=2,
+                                      scan_period=min(cfg.scan_period, 2))
+        cut = (model if cfg.num_layers == 2
+               else lm.init_model(cut_cfg, args.seed, device=dev))
+        with dropless(cut):
+            err = teacher_forced(cut, 2, 64, 8)
+        kinds = [cut_cfg.layer_kind(i) + ("+moe" if cut_cfg.layer_is_moe(i)
+                                          else "") for i in range(2)]
+        log(f"[lm] lm_check teacher-forced {cfg.name} at full width cut to "
+            f"2 layers {kinds}{', MoE dropless' if cfg.moe_num_experts else ''}"
+            f", batch 2 x prompt 64 + 8 steps: max |prefill/decode - "
+            f"forward| logits {err:.3g} (gate 1e-3); {name}'s own "
+            f"{cfg.num_layers}-layer model {deep:.3g} (not gated)")
+        if err > 1e-3:
+            raise AssertionError(f"lm_check {cfg.name}: teacher-forced error "
+                                 f"{err} > 1e-3")
+        del cut
+
+    def moe_report(name, model, batch, gen):
+        """The MoE cells' extra lines: the decode step's second bound (the
+        active parameters' bytes), the capacities, and the share of
+        (token, expert) pairs dropped in the prefill and in each decode
+        step of one `generate`, read from each layer's aux after it."""
+        cfg = model.cfg
+        b, prompt = batch["tokens"].shape
+        act_b = count_params(cfg, active_only=True) * 2
+        log(f"[lm] {name}: decode step bounds {weight_bytes(model)} weight "
+            f"bytes ({weight_bytes(model) / HBM_BYTES_PER_S * 1e3:.3f} ms: "
+            f"the capacity dispatch runs every expert's slots, full or "
+            f"empty) and {act_b:.0f} active-parameter bytes "
+            f"({act_b / HBM_BYTES_PER_S * 1e3:.3f} ms: top-{cfg.moe_top_k} "
+            f"of {cfg.moe_num_experts} experts a token) over "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        fracs = []
+        real = lm_moe.moe
+
+        def recording(p, x):
+            y, aux = real(p, x)
+            fracs.append(aux.dropped_fraction)
+            return y, aux
+
+        lm_moe.moe = recording
+        try:
+            lm_serve.generate(model, batch, steps=gen,
+                              max_len=prompt + gen + 8)
+        finally:
+            lm_moe.moe = real
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        per = torch.stack(fracs).reshape(gen, n_moe).mean(dim=1).cpu()
+        log(f"[lm] {name}: capacity {lm_moe.capacity(cfg, b * prompt)} slots "
+            f"an expert in the prefill ({b} x {prompt} tokens), "
+            f"{lm_moe.capacity(cfg, b)} in a decode step ({b} tokens, "
+            f"top-{cfg.moe_top_k} of {cfg.moe_num_experts}, factor "
+            f"{cfg.moe_capacity_factor}); dropped (token, expert) pairs, "
+            f"mean over {n_moe} MoE layers: prefill {float(per[0]):.4f}, "
+            f"decode steps median {float(per[1:].median()):.4f} (min "
+            f"{float(per[1:].min()):.4f}, max {float(per[1:].max()):.4f})")
+
+    xcfg = get_config("xlstm-1.3b")
+    with lm_cell("lm_xlstm"):
+        x16 = lm.init_model(xcfg, args.seed, device=dev)
+        log(f"[lm] xlstm-1.3b: {weight_bytes(x16)} bf16 weight bytes, "
+            f"{count_params(xcfg):.0f} params, {xcfg.num_layers} blocks "
+            f"(mLSTM / sLSTM alternating, no MLP)")
+        batch = lm_serve.make_batch(xcfg, 8, 512, args.seed, dev)
+        lm_serve_run("lm_xlstm", x16, batch, 32)
+        lm_step_profile("lm_xlstm", x16, batch, 32)
+        # the sLSTM's time loop at the prefill's shape, one layer
+        hx = torch.randn((8, 512, xcfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             args.seed)) * 0.5
+        lm_xlstm.slstm_with_state(x16.blocks[1].slstm, hx)
+        torch.cuda.synchronize()
+        with gc_paused():
+            t0 = time.perf_counter()
+            lm_xlstm.slstm_with_state(x16.blocks[1].slstm, hx)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n_sl = sum(xcfg.layer_kind(i) == "slstm"
+                   for i in range(xcfg.num_layers))
+        log(f"[lm] lm_xlstm sLSTM time loop, batch 8 x 512 steps, one layer: "
+            f"{host / 512 * 1e3:.4f} host ms a time step (enqueue), "
+            f"{wall / 512 * 1e3:.4f} ms a step to the sync; the prefill "
+            f"runs {n_sl} such layers, {n_sl * 512} host steps "
+            f"({n_sl * wall * 1e3:.1f} ms at this pace)")
+        del hx
+        lm_no_sync("lm_xlstm", x16, batch, 32)
+        lm_teacher_check("lm_xlstm", x16)
+    with lm_cell("lm_xlstm_long"):
+        # long_500k (configs/shapes.py LONG_CAPABLE): the state is fixed-
+        # size and no xLSTM layer reads the position, so decode steps at
+        # 524 272-524 287 give the logits of steps at 1024-1039
+        batch = lm_serve.make_batch(xcfg, 1, 1024, args.seed, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = lm.prefill(x16, batch, 1024 + 16)
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        st_bytes = sum(t.numel() * t.element_size()
+                       for st in states for t in st.values())
+
+        def steps_at(pos0):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(17)]
+            st, tok, out = states, tok0, []
+            ev[0].record()
+            for t in range(16):
+                lg, st = lm.decode_step(x16, tok, st, pos0 + t)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(lg)
+                ev[t + 1].record()
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+            return (torch.stack(out), torch.cuda.max_memory_allocated(),
+                    float(np.median(ms)))
+
+        lm.decode_step(x16, tok0, states, 1024)  # warm-up at batch 1
+        short, peak_s, ms_s = steps_at(1024)
+        far, peak_l, ms_l = steps_at(524272)
+        same = torch.equal(short, far)
+        log(f"[lm] lm_xlstm_long: prefill 1 x 1024 {pre_ms:.1f} ms; state "
+            f"{st_bytes} bytes for all {xcfg.num_layers} layers; 16 greedy "
+            f"decode steps at 524272-524287: median {ms_l:.3f} ms a step, "
+            f"peak {peak_l} device bytes; at 1024-1039: {ms_s:.3f} ms, peak "
+            f"{peak_s}; logits equal: {same} (a prefill of 524288 tokens is "
+            f"not run: {n_sl * 524288} host steps of the sLSTM loop)")
+        if not same:
+            raise AssertionError("lm_xlstm_long: the logits at 524272 differ "
+                                 "from those at 1024")
+        if abs(peak_l - peak_s) > 0.01 * peak_s:
+            raise AssertionError(f"lm_xlstm_long: peak {peak_l} is not within "
+                                 f"1 % of {peak_s}")
+        del logits, states, short, far
+    with lm_cell("lm_embed_index_xlstm"):
+        before = dict(by_path.get("lm", {}))
+        embed_index("lm_embed_index_xlstm", x16, 4096, 128)
+        log(f"[lm] lm_embed_index_xlstm launches: "
+            f"{ {n: c - before.get(n, 0) for n, c in by_path['lm'].items()} }")
+        del x16
+
+    def moe_cell(name, cfg, b, prompt, gen, cut=None):
+        model = lm.init_model(cfg, args.seed, device=dev)
+        log(f"[lm] {name}: {cfg.name} at full width, {weight_bytes(model)} "
+            f"bf16 weight bytes, {count_params(cfg):.0f} params "
+            f"({count_params(cfg, active_only=True):.0f} active)"
+            + (f"; cut {cut}" if cut else ""))
+        batch = lm_serve.make_batch(cfg, b, prompt, args.seed, dev)
+        lm_serve_run(name, model, batch, gen)
+        moe_report(name, model, batch, gen)
+        lm_step_profile(name, model, batch, gen)
+        lm_no_sync(name, model, batch, gen)
+        lm_teacher_check(name, model)
+        return model
+
+    with lm_cell("lm_moe"):
+        moe_cell("lm_moe", get_config("deepseek-moe-16b"), 8, 512, 32)
+    jamba = get_config("jamba-v0.1-52b")
+    with lm_cell("lm_hybrid"):
+        j16 = moe_cell("lm_hybrid", dataclasses.replace(jamba, num_layers=8),
+                       4, 256, 16, cut=f"32 -> 8 layers (one period: 1 "
+                       f"attention, 7 mamba, 4 MoE); the whole model "
+                       f"{count_params(jamba) * 2 / 1e9:.1f} GB in bf16")
+        # the mamba scan's working set: one layer at the prefill's shape
+        hj = torch.randn((4, 256, jamba.d_model), device=dev) * 0.5
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        lm_ssm.mamba_with_state(j16.blocks[1].mamba, hj)
+        ev[1].record()
+        torch.cuda.synchronize()
+        n4 = 4 * 256 * jamba.d_inner * jamba.mamba_d_state * 4
+        log(f"[lm] lm_hybrid mamba layer, batch 4 x 256 (one chunk): "
+            f"{ev[0].elapsed_time(ev[1]):.3f} ms, working set "
+            f"{torch.cuda.max_memory_allocated() - base} bytes above its "
+            f"input, {(torch.cuda.max_memory_allocated() - base) / n4:.1f} "
+            f"x one [B, Q, di, N] f32 tensor ({n4} bytes)")
+        del j16, hj
+    llama4 = get_config("llama4-maverick-400b-a17b")
+    with lm_cell("lm_llama4"):
+        moe_cell("lm_llama4", dataclasses.replace(llama4, num_layers=2), 4,
+                 64, 16, cut=f"48 -> 2 layers (one dense and one MoE); the "
+                 f"whole model {count_params(llama4) * 2 / 1e9:.1f} GB in "
+                 f"bf16")
+    with lm_cell("lm_check, recurrent and MoE"):
+        # the card against the CPU, full width cut to 2 layers, forward
+        # logits on 2 x 64 tokens; for MoE first each token's expert ids
+        routes = []
+        real_route = lm_moe.route
+
+        def recording(p, x):
+            out = real_route(p, x)
+            routes.append((out[1], out[3]))
+            return out
+
+        for arch in ("xlstm-1.3b", "deepseek-moe-16b"):
+            cut = dataclasses.replace(get_config(arch), dtype="float32",
+                                      num_layers=2)
+            m_card = lm.init_model(cut, args.seed, device=dev)
+            m_cpu = lm.Model(cut, device="cpu")
+            m_cpu.load_state_dict(m_card.state_dict())
+            batch = lm_serve.make_batch(cut, 2, 64, args.seed, dev)
+            lm_moe.route = recording
+            try:
+                on_card = lm.logits_from_hidden(
+                    m_card, lm.forward(m_card, batch)).cpu()
+                n_card = len(routes)
+                on_cpu = lm.logits_from_hidden(m_cpu, lm.forward(
+                    m_cpu, {k: v.cpu() for k, v in batch.items()}))
+            finally:
+                lm_moe.route = real_route
+            # a token whose expert ids differ must sit on a near tie of
+            # the CPU's k-th and (k+1)-th router probabilities
+            tied = torch.zeros(on_cpu.shape[:2], dtype=torch.bool)
+            k = cut.moe_top_k
+            for (_, i_card), (p_cpu, i_cpu) in zip(routes[:n_card],
+                                                   routes[n_card:]):
+                differ = (i_card.cpu().sort(-1).values
+                          != i_cpu.sort(-1).values).any(-1)
+                top = p_cpu.sort(-1, descending=True).values
+                near = (top[..., k - 1] - top[..., k]) < 1e-6
+                if bool((differ & ~near).any()):
+                    raise AssertionError(f"lm_check {arch}: expert ids differ "
+                                         f"between card and CPU away from a "
+                                         f"near tie")
+                tied |= differ
+            routes.clear()
+            keep = ~tied
+            e_cpu = float((on_card - on_cpu).abs()[keep].max())
+            log(f"[lm] lm_check card vs CPU, {arch} full width cut to 2 "
+                f"layers, f32, forward logits on 2 x 64 tokens: max |diff| "
+                f"{e_cpu:.3g} (gate 1e-3)"
+                + (f"; expert ids equal but for {int(tied.sum())} tokens on "
+                   f"a near tie (< 1e-6), left out of the gate"
+                   if cut.moe_num_experts else ""))
+            if e_cpu > 1e-3:
+                raise AssertionError(f"lm_check {arch}: card != CPU ({e_cpu})")
+            del m_card, m_cpu, on_card, on_cpu
+    log(f"[lm] recurrent and MoE cells in "
+        f"{time.perf_counter() - new_wall:.1f} s")
     log(f"[lm] phase 14 in {time.perf_counter() - lm_wall:.1f} s")
 
     # -- 15. [examples]: the port's examples on the card and on the CPU ----

@@ -16,7 +16,7 @@ from repro_torch import resolve_device
 from repro_torch.core.corpus import DenseCorpus, SparseCorpus
 from repro_torch.core.store import BucketStore
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import STATE_FIELDS, Model
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -114,3 +114,34 @@ def model_from(params, cfg: ModelConfig, *, device=None) -> Model:
     if len(src) != len(state):
         raise ValueError(f"{len(src)} leaves for {len(state)} parameters")
     return model
+
+
+def decode_states_from(states, cfg: ModelConfig, *, device=None) -> list:
+    """The reference's decode states (`repro.models.model.prefill`'s, as
+    JAX or numpy arrays: `{"sub{j}": {...}}`, each leaf stacked on a
+    leading [num_periods] axis) -> the port's list of per-layer dicts.
+    Attention keeps `k` / `v` (and `xk` / `xv`); a recurrent layer's
+    `s0`, `s1`, ... (its state tuple, read back in sorted order) become
+    the port's named fields (`model.STATE_FIELDS`); mamba's `h` / `conv`
+    keep their names.  Leaves keep their dtypes (bf16 through f32)."""
+    dev = resolve_device(device)
+
+    def leaf(x, p):
+        a = np.asarray(x)[p]
+        t = torch.from_numpy(np.array(a, np.float32))
+        if str(a.dtype) == "bfloat16":
+            t = t.to(torch.bfloat16)
+        return t.to(dev)
+
+    out = []
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        sub = states[f"sub{i % cfg.scan_period}"]
+        p = i // cfg.scan_period
+        if kind in ("mlstm", "slstm"):
+            vals = [sub[k] for k in sorted(sub)]
+            out.append({f: leaf(v, p)
+                        for f, v in zip(STATE_FIELDS[kind], vals)})
+        else:
+            out.append({k: leaf(v, p) for k, v in sub.items()})
+    return out

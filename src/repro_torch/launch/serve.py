@@ -1,12 +1,14 @@
 """End-to-end LM serving driver: batched prefill, then greedy (or sampled)
 decode, on one device.
 
-The port of `repro.launch.serve`.  The decode loop keeps the tokens on
-the device and makes no host sync per step: each step's position is a
-host int, the next token an argmax on the device, and the tokens come
-back once, after the last step.
+The port of `repro.launch.serve`, for every configured architecture
+(`--arch`, one of `configs.ARCH_NAMES`: attention, mamba + attention +
+MoE, mLSTM / sLSTM, MoE).  The decode loop keeps the tokens on the
+device and makes no host sync per step: each step's position is a host
+int, the next token an argmax on the device, and the tokens come back
+once, after the last step.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --smoke --device cpu --batch 4 --prompt-len 64 --gen 32
 """
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer
@@ -88,7 +90,8 @@ def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="one of " + ", ".join(ARCH_NAMES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -101,7 +104,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh_data != 1 or args.mesh_model != 1:
         raise ValueError("the port serves on one device: --mesh-data and "
-                         "--mesh-model must be 1 (ROADMAP 1 item 6)")
+                         "--mesh-model must be 1 until models/sharding.py "
+                         "is ported (ROADMAP 1 item 8d)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)

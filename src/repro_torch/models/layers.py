@@ -300,12 +300,13 @@ class Attention(nn.Module):
 
 class Mlp(nn.Module):
     """swiglu: w_gate, w_up [d, f], w_down [f, d]; gelu (tanh, as
-    `jax.nn.gelu`) or relu: w_in [d, f], w_down [f, d]."""
+    `jax.nn.gelu`) or relu: w_in [d, f], w_down [f, d].  f is `hidden`,
+    by default `cfg.d_ff` (an MoE's shared expert is wider)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, hidden: int | None = None, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, hidden or cfg.d_ff
         self.kind = cfg.mlp_type
         if self.kind == "swiglu":
             self.w_gate = _empty((d, f), device, dtype)

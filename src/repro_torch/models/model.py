@@ -1,26 +1,34 @@
 """Model assembly: embeddings, the layer stack, heads, modality stubs.
 
-The port of `repro.models.model` for the architectures whose layers are
-all attention with dense MLPs: the decoder-only stacks (gemma2's local /
-global alternation and softcaps, qkv biases, GQA), the encoder-decoder
-(bidirectional encoder over frontend frames, decoder cross-attention)
-and the vision-prefix stack (patch embeddings prepended to the text).
-The recurrent mixers and the MoE layers are not ported yet, and a config
-that has one raises `NotImplementedError`.
+The port of `repro.models.model` for every configured architecture.  A
+layer's mixer is `cfg.layer_kind(i)`: grouped-query attention (gemma2's
+local / global alternation and softcaps, qkv biases, the encoder-
+decoder's cross-attention, the vision prefix), mamba
+(`models/ssm.py`), or the xLSTM's mLSTM / sLSTM (`models/xlstm.py`).
+Its feed-forward is an MoE layer where `cfg.layer_is_moe(i)`
+(`models/moe.py`), else a dense MLP where `d_ff > 0`, else none (the
+xLSTM blocks, which then have no norm2 either).
 
 The layers run as a Python loop over `num_layers` blocks: layer i is the
 reference's period `i // scan_period`, sub-layer `i % scan_period`.
 
 Entry points, as the reference's:
-  forward(model, batch)         -> hidden [B, S, d]
-  logits_from_hidden(model, h)  -> f32 logits, final softcap applied
-  prefill(model, batch, max_len)-> (last logits [B, V], decode states)
+  forward(model, batch)          -> hidden [B, S, d]
+  forward_with_aux(model, batch) -> (hidden, aux [2]): the reference's
+                                    `forward(...)[:2]`, aux = (MoE
+                                    load-balance loss, router z-loss)
+                                    summed over the layers
+  logits_from_hidden(model, h)   -> f32 logits, final softcap applied
+  prefill(model, batch, max_len) -> (last logits [B, V], decode states)
   decode_step(model, token, states, pos) -> (logits [B, V], states)
 
-Decode states are one dict per layer: `k` / `v` [B, max_len, Hkv, dh]
-self-attention caches, and for the encoder-decoder `xk` / `xv`, the
-projected encoder states.  `decode_step` writes each step's K / V into
-the caches in place.
+Decode states are one dict per layer.  Attention: `k` / `v` [B, max_len,
+Hkv, dh] self-attention caches, and for the encoder-decoder `xk` / `xv`,
+the projected encoder states; `decode_step` writes each step's K / V
+into the caches in place.  Mamba: `h` [B, di, N] f32 and `conv` [B,
+d_conv - 1, di].  mLSTM: `C`, `n`, `m`; sLSTM: `c`, `n`, `h`, `m` (the
+reference's tuples, by name).  Recurrent states are fixed-size and are
+replaced at each step; `pos` is no input to them.
 """
 
 from __future__ import annotations
@@ -32,25 +40,26 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Attention, Mlp, RmsNorm
+
+# each recurrent mixer: its module, its full-sequence and its one-token
+# function, and the names of its state tuple's fields, in order
+_RECURRENT = {
+    "mamba": (ssm.Mamba, ssm.mamba_with_state, ssm.mamba_decode,
+              ("h", "conv")),
+    "mlstm": (xlstm.MLstm, xlstm.mlstm_with_state, xlstm.mlstm_decode,
+              ("C", "n", "m")),
+    "slstm": (xlstm.SLstm, xlstm.slstm_with_state, xlstm.slstm_decode,
+              ("c", "n", "h", "m")),
+}
+STATE_FIELDS = {kind: r[3] for kind, r in _RECURRENT.items()}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a layer kind the port lacks."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if kinds - {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds - {'attn'})} layers are not ported "
-            f"yet (ROADMAP 1 item 8b, the recurrent mixers)")
-    if any(cfg.layer_is_moe(i) for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP 1 item "
-            f"8c)")
 
 
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -61,38 +70,61 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
 
 
 class Block(nn.Module):
-    """One layer: norm1 + self-attention, with `cross` a norm_x + cross-
-    attention over the encoder states, then norm2 + MLP."""
+    """Layer i: norm1 + its mixer (self-attention, with `cross` a
+    norm_x + cross-attention over the encoder states; or mamba, mLSTM,
+    sLSTM), then norm2 + MoE or MLP, or no feed-forward (d_ff = 0)."""
 
-    def __init__(self, cfg: ModelConfig, local: bool, cross: bool, *,
-                 device, dtype):
+    def __init__(self, cfg: ModelConfig, i: int, cross: bool, *, device,
+                 dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.local = local
+        self.kind = cfg.layer_kind(i)
+        self.local = cfg.layer_is_local_attn(i)
         self.norm1 = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.attn = Attention(cfg, **kw)
-        if cross:
-            self.cross = Attention(cfg, cross=True, **kw)
-            self.norm_x = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.cross = None
+        if self.kind == "attn":
+            self.attn = Attention(cfg, **kw)
+            if cross:
+                self.cross = Attention(cfg, cross=True, **kw)
+                self.norm_x = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
         else:
-            self.cross = None
-        self.norm2 = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.mlp = Mlp(cfg, **kw)
+            setattr(self, self.kind, _RECURRENT[self.kind][0](cfg, **kw))
+        self.moe = self.mlp = self.norm2 = None
+        if cfg.layer_is_moe(i):
+            self.moe = moe_mod.Moe(cfg, **kw)
+        elif cfg.d_ff > 0:
+            self.mlp = Mlp(cfg, **kw)
+        if self.moe is not None or self.mlp is not None:
+            self.norm2 = RmsNorm(cfg.d_model, cfg.norm_eps, **kw)
 
-    def forward(self, x, positions, enc_out=None, mode: str = "train",
-                state=None, pos: int | None = None):
-        """mode train | prefill | decode; returns (x, new state)."""
-        h = self.norm1(x)
+    def _attend(self, h, positions, mode, state, pos):
         if mode == "train":
-            mix = self.attn(h, positions, local=self.local)
-            st = {}
-        elif mode == "prefill":
+            return self.attn(h, positions, local=self.local), {}
+        if mode == "prefill":
             mix, (ck, cv) = self.attn.prefill(h, positions, local=self.local)
-            st = {"k": ck, "v": cv}
         else:
             mix, ck, cv = self.attn.decode(h, state["k"], state["v"], pos,
                                            local=self.local)
-            st = {"k": ck, "v": cv}
+        return mix, {"k": ck, "v": cv}
+
+    def _recur(self, h, mode, state):
+        _, with_state, decode, fields = _RECURRENT[self.kind]
+        mixer = getattr(self, self.kind)
+        if mode == "decode":
+            mix, st = decode(mixer, h, tuple(state[f] for f in fields))
+        else:
+            mix, st = with_state(mixer, h)
+        return mix, ({} if mode == "train" else dict(zip(fields, st)))
+
+    def forward(self, x, positions, enc_out=None, mode: str = "train",
+                state=None, pos: int | None = None):
+        """mode train | prefill | decode; returns (x, new state, aux [2]
+        or None: this layer's MoE (load-balance, z) losses)."""
+        h = self.norm1(x)
+        if self.kind == "attn":
+            mix, st = self._attend(h, positions, mode, state, pos)
+        else:
+            mix, st = self._recur(h, mode, state)
         x = x + mix
         if self.cross is not None:
             hx = self.norm_x(x)
@@ -107,8 +139,14 @@ class Block(nn.Module):
                 if mode == "prefill":
                     st.update(xk=kx, xv=vx)
             x = x + cx
-        x = x + self.mlp(self.norm2(x))
-        return x, st
+        aux = None
+        if self.moe is not None:
+            y, maux = moe_mod.moe(self.moe, self.norm2(x))
+            aux = torch.stack([maux.load_balance_loss, maux.router_z_loss])
+            x = x + y
+        elif self.mlp is not None:
+            x = x + self.mlp(self.norm2(x))
+        return x, st, aux
 
 
 class Model(nn.Module):
@@ -118,7 +156,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        check_supported(cfg)
         cfg.period_kinds()  # the layer pattern must tile num_layers
         self.cfg = cfg
         dev = resolve_device(device)
@@ -133,14 +170,13 @@ class Model(nn.Module):
         ) if cfg.num_prefix_embeds or cfg.encoder_layers else None
         cross = cfg.encoder_layers > 0
         self.blocks = nn.ModuleList(
-            Block(cfg, cfg.layer_is_local_attn(i), cross, **kw)
-            for i in range(cfg.num_layers))
+            Block(cfg, i, cross, **kw) for i in range(cfg.num_layers))
         self.final_norm = RmsNorm(d, cfg.norm_eps, **kw)
         if cfg.encoder_layers:
             enc_cfg = _encoder_cfg(cfg)
             self.encoder = nn.ModuleList(
-                Block(enc_cfg, False, False, **kw)
-                for _ in range(enc_cfg.num_layers))
+                Block(enc_cfg, i, False, **kw)
+                for i in range(enc_cfg.num_layers))
             self.enc_norm = RmsNorm(d, cfg.norm_eps, **kw)
         else:
             self.encoder = None
@@ -210,19 +246,30 @@ def _run(model: Model, batch, mode: str):
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None].expand(x.shape[:2])
     states = []
+    aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for blk in model.blocks:
-        x, st = blk(x, positions, enc_out=enc_out, mode=mode)
+        x, st, a = blk(x, positions, enc_out=enc_out, mode=mode)
         states.append(st)
-    return model.final_norm(x), states
+        if a is not None:
+            aux = aux + a
+    return model.final_norm(x), states, aux
 
 
-def forward(model: Model, batch) -> torch.Tensor:
+def forward_with_aux(model: Model, batch):
     """Full-sequence forward.
 
     batch keys: tokens [B, S_text] and/or prefix_embeds [B, P, d];
-    frames [B, S_src, d] for enc-dec.  Returns hidden [B, S, d].
+    frames [B, S_src, d] for enc-dec.  Returns (hidden [B, S, d], aux
+    [2] f32: the MoE layers' load-balance and router z-losses, summed;
+    zeros without MoE).
     """
-    return _run(model, batch, "train")[0]
+    hidden, _, aux = _run(model, batch, "train")
+    return hidden, aux
+
+
+def forward(model: Model, batch) -> torch.Tensor:
+    """`forward_with_aux`'s hidden states [B, S, d]."""
+    return forward_with_aux(model, batch)[0]
 
 
 def logits_from_hidden(model: Model, hidden: torch.Tensor) -> torch.Tensor:
@@ -241,10 +288,10 @@ def logits_from_hidden(model: Model, hidden: torch.Tensor) -> torch.Tensor:
 def prefill(model: Model, batch, max_len: int):
     """Returns (last_logits [B, V], decode states).  Self-attention
     caches are padded to max_len so decode_step extends them in place;
-    cross caches keep the encoder length."""
-    hidden, states = _run(model, batch, "prefill")
+    cross caches keep the encoder length, recurrent states their size."""
+    hidden, states, _ = _run(model, batch, "prefill")
     for st in states:
-        for key in ("k", "v"):
+        for key in ("k", "v") if "k" in st else ():
             c = st[key]
             pad = c.new_zeros((c.shape[0], max_len - c.shape[1])
                               + c.shape[2:])
@@ -254,13 +301,14 @@ def prefill(model: Model, batch, max_len: int):
 
 def decode_step(model: Model, token: torch.Tensor, states, pos: int):
     """token: [B] int on the model's device; pos: the host int position.
-    Returns (logits [B, V], states), the caches written in place."""
+    Returns (logits [B, V], states), the attention caches written in
+    place, the recurrent states new."""
     x = _embed_inputs(model, {"tokens": token[:, None]})
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     new_states = []
     for blk, st in zip(model.blocks, states):
-        x, nst = blk(x, positions, mode="decode", state=st, pos=pos)
+        x, nst, _ = blk(x, positions, mode="decode", state=st, pos=pos)
         new_states.append(nst)
     x = model.final_norm(x)
     return logits_from_hidden(model, x)[:, 0], new_states

@@ -1,0 +1,213 @@
+"""xLSTM blocks (arXiv:2405.04517) on torch: the mLSTM (matrix memory,
+chunkwise parallel) and the sLSTM (scalar memory, strictly recurrent).
+
+The port of `repro.models.xlstm`.  The mLSTM is quadratic inside a chunk
+and carries its (C, n, m) state from chunk to chunk (a Python loop over
+the chunks); decode is the same function at chunk 1.  The sLSTM feeds
+h_{t-1} through a recurrent matrix into the gates, so it is a Python
+loop over time, one step a few torch ops.
+
+States, as the reference's tuples:
+  mLSTM: (C [B, H, dh, dh], n [B, H, dh], m [B, H])
+  sLSTM: (c [B, H, dh], n [B, H, dh], h [B, H, dh], m [B, H, dh])
+The initial m is -1e30 and the sLSTM's initial n 1e-6, as the
+reference's, so the first `exp` terms match.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import _draw, _empty
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+class MLstm(nn.Module):
+    """up_proj [d, 4d] (the x branch and the gate branch, di = 2d each),
+    wq / wk / wv [d, d], w_if [d, 2H], b_i / b_f [H], down_proj [2d, d]."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, hn = cfg.d_model, cfg.num_heads
+        self.up_proj = _empty((d, 4 * d), device, dtype)
+        self.wq = _empty((d, d), device, dtype)
+        self.wk = _empty((d, d), device, dtype)
+        self.wv = _empty((d, d), device, dtype)
+        self.w_if = _empty((d, 2 * hn), device, dtype)
+        self.b_i = _empty((hn,), device, dtype)
+        self.b_f = _empty((hn,), device, dtype)
+        self.down_proj = _empty((2 * d, d), device, dtype)
+
+    def reset_parameters(self, g: torch.Generator):
+        for w in (self.up_proj, self.wq, self.wk, self.wv):
+            _draw(w, g)
+        _draw(self.w_if, g, 0.02)
+        self.b_i.zero_()
+        self.b_f.fill_(3.0)  # open forget gates
+        _draw(self.down_proj, g)
+
+
+def _mlstm_chunk(q, k, v, li, lf, state):
+    """One chunkwise-parallel mLSTM step.
+
+    q/k/v: [B, H, Q, dh]; li/lf: [B, H, Q] log input / forget gates.
+    state: (C [B, H, dh, dh], n [B, H, dh], m [B, H]).
+    """
+    C, n, m = state
+    b_cum = torch.cumsum(lf, dim=-1)                   # [B, H, Q]
+    B_tot = b_cum[..., -1]
+    u = li - b_cum
+    u_max = torch.cummax(u, dim=-1).values
+    m_t = b_cum + torch.maximum(m[..., None], u_max)   # [B, H, Q]
+
+    inter_w = torch.exp(b_cum + m[..., None] - m_t)
+    # intra weights D_{t tau} = exp(b_t - b_tau + li_tau - m_t), tau <= t
+    lD = (b_cum[..., :, None] - b_cum[..., None, :] + li[..., None, :]
+          - m_t[..., :, None])
+    qn = lD.shape[-1]
+    tri = torch.ones((qn, qn), dtype=torch.bool, device=lD.device).tril()
+    D = torch.where(tri, torch.exp(lD), 0.0)           # [B, H, Q, Q]
+
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * D
+    h_intra = torch.einsum("bhqk,bhkd->bhqd", scores, v)
+    h_inter = torch.einsum("bhqd,bhde->bhqe", q, C) * inter_w[..., None]
+    num = h_intra + h_inter
+
+    n_intra = torch.einsum("bhqk,bhkd->bhqd", D, k)
+    n_t = n_intra + n[..., None, :] * inter_w[..., None]
+    denom = torch.maximum(torch.einsum("bhqd,bhqd->bhq", q, n_t).abs(),
+                          torch.exp(-m_t))
+    h = num / denom[..., None]                         # [B, H, Q, dh]
+
+    # the state at the end of the chunk
+    m_new = B_tot + torch.maximum(m, u_max[..., -1])
+    decay_prev = torch.exp(B_tot + m - m_new)          # [B, H]
+    w_tau = torch.exp(B_tot[..., None] - b_cum + li - m_new[..., None])
+    C_new = C * decay_prev[..., None, None] + torch.einsum(
+        "bhqd,bhqe,bhq->bhde", k, v, w_tau)
+    n_new = n * decay_prev[..., None] + torch.einsum("bhqd,bhq->bhd", k,
+                                                     w_tau)
+    return h, (C_new, n_new, m_new)
+
+
+def _heads(x: torch.Tensor, hn: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, hn, d // hn).transpose(1, 2)  # [B, H, S, dh]
+
+
+def mlstm_with_state(p: MLstm, x: torch.Tensor, state=None,
+                     chunk: int = 256):
+    """x: [B, S, d] -> ([B, S, d], state), from `state` or the initial
+    one.  Decode is this function at chunk 1 (`mlstm_decode`)."""
+    cfg, dt = p.cfg, x.dtype
+    b, s, d = x.shape
+    hn = cfg.num_heads
+    dh = d // hn
+    x_br, z = (x @ p.up_proj.to(dt)).chunk(2, dim=-1)   # [B, S, 2d]
+    q = _heads(x @ p.wq.to(dt), hn)
+    # the reference divides by a numpy f64 scalar, which promotes bf16
+    k = _heads(x @ p.wk.to(dt), hn).float() / math.sqrt(dh)
+    v = _heads(x @ p.wv.to(dt), hn)
+    gates = x.float() @ p.w_if.float()
+    li = (gates[..., :hn] + p.b_i).transpose(1, 2)            # [B, H, S]
+    lf = F.logsigmoid(gates[..., hn:] + p.b_f).transpose(1, 2)
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((b, hn, dh, dh), **f32),
+                 torch.zeros((b, hn, dh), **f32),
+                 torch.full((b, hn), -1e30, **f32))
+    qn = min(chunk, s)
+    if s % qn:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {qn}")
+    hs = []
+    for c0 in range(0, s, qn):
+        sl = slice(c0, c0 + qn)
+        h, state = _mlstm_chunk(q[:, :, sl].float(), k[:, :, sl],
+                                v[:, :, sl].float(), li[..., sl], lf[..., sl],
+                                state)
+        hs.append(h)
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, d)
+    # GLU-style read-out: h modulates the up-projected branch, gated by
+    # silu(z); h repeats (2d // d) times along the features
+    out = x_br * F.silu(z)
+    out = out * torch.cat([h.to(dt)] * (out.shape[-1] // d), dim=-1)
+    return out @ p.down_proj.to(dt), state
+
+
+def mlstm_decode(p: MLstm, x: torch.Tensor, state):
+    """x: [B, 1, d]; the O(1) recurrent update."""
+    return mlstm_with_state(p, x, state, chunk=1)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+class SLstm(nn.Module):
+    """w_gates [d, 4d] (i, f, z, o pre-activations), r_gates [H, dh, 4dh],
+    b_gates [4d], out_proj [d, d]."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, hn = cfg.d_model, cfg.num_heads
+        dh = d // hn
+        self.w_gates = _empty((d, 4 * d), device, dtype)
+        self.r_gates = _empty((hn, dh, 4 * dh), device, dtype)
+        self.b_gates = _empty((4 * d,), device, dtype)
+        self.out_proj = _empty((d, d), device, dtype)
+
+    def reset_parameters(self, g: torch.Generator):
+        d = self.cfg.d_model
+        _draw(self.w_gates, g)
+        _draw(self.r_gates, g, 1.0 / math.sqrt(self.r_gates.shape[1]))
+        self.b_gates.zero_()
+        self.b_gates[d:2 * d] = 3.0
+        _draw(self.out_proj, g)
+
+
+def slstm_with_state(p: SLstm, x: torch.Tensor, state=None):
+    """The recurrence over time, x: [B, S, d] -> ([B, S, d], state)."""
+    cfg = p.cfg
+    b, s, d = x.shape
+    hn = cfg.num_heads
+    dh = d // hn
+    pre_x = (x.float() @ p.w_gates.float() + p.b_gates.float()).reshape(
+        b, s, hn, 4 * dh)
+    if state is None:
+        zero = torch.zeros((b, hn, dh), dtype=torch.float32, device=x.device)
+        state = (zero, zero + 1e-6, zero, zero - 1e30)  # c, n, h, m
+    c, n, h, m = state
+    r = p.r_gates.float()
+    hs = []
+    for t in range(s):
+        pre = pre_x[:, t] + torch.einsum("bhd,hde->bhe", h, r)
+        it, ft, zt, ot = pre.chunk(4, dim=-1)
+        fm = ft + m
+        m_new = torch.maximum(fm, it)
+        ip = torch.exp(it - m_new)
+        fp = torch.exp(fm - m_new)
+        c = fp * c + ip * torch.tanh(zt)
+        n = fp * n + ip
+        h = torch.sigmoid(ot) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    return out @ p.out_proj.to(x.dtype), (c, n, h, m)
+
+
+def slstm_decode(p: SLstm, x: torch.Tensor, state):
+    return slstm_with_state(p, x, state)

@@ -2,8 +2,10 @@
 the paper's sparse workload on the card against the CPU, and the serving
 layer's use of the card: the pipelined dispatch's CUDA events, a stage
 with no host sync, the churn writer's stream handoff, a batch in
-flight across an update; the LM serving path: the SMOKE models on
-the card against the CPU, a decode loop with no host sync, and the
+flight across an update; the LM serving path: the SMOKE models of every
+architecture on the card against the CPU, the mamba, mLSTM / sLSTM and
+MoE layers on the card against the CPU, decode loops with no host
+sync, and the
 index kernels at gemma2-2b's width (D = 2304); every grid the autotune
 sweep may pick against the plain versions; and the process mesh
 over NCCL at the one card's world size of 1: its collectives, a search,
@@ -665,7 +667,8 @@ def no_tf32():
 
 @pytest.mark.parametrize("arch", [
     "gemma2-2b", "starcoder2-7b", "codeqwen1.5-7b", "phi3-medium-14b",
-    "seamless-m4t-medium", "phi-3-vision-4.2b"])
+    "seamless-m4t-medium", "phi-3-vision-4.2b", "xlstm-1.3b",
+    "jamba-v0.1-52b", "deepseek-moe-16b", "llama4-maverick-400b-a17b"])
 def test_smoke_model_on_card_equals_cpu(dev, no_tf32, arch):
     """Forward logits, prefill and 4 teacher-forced decode steps of the
     SMOKE config in f32, on the card against the CPU on the same
@@ -714,6 +717,123 @@ def test_lm_decode_loop_makes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(got, want)
     assert bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b",
+                                  "deepseek-moe-16b"])
+def test_recurrent_and_moe_decode_loop_makes_no_host_sync(dev, arch):
+    """`generate` through mLSTM / sLSTM, mamba and MoE layers runs under
+    sync-debug "error"; its tokens equal a run outside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch, smoke=True)
+    model = M.init_model(cfg, 0, device=dev)
+    batch = make_batch(cfg, 2, 16, 0, dev)
+    want = generate(model, batch, steps=8, max_len=32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = generate(model, batch, steps=8, max_len=32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+
+
+def _layer_on_both(dev, module, arch):
+    """A module of the SMOKE config in f32 drawn on the CPU, and a copy
+    on the card."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = module(cfg)
+    g = torch.Generator().manual_seed(0)
+    for sub in cpu.modules():  # an MoE's shared MLP resets itself
+        sub.reset_parameters(g)
+    card = module(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (512, 256)])
+def test_mamba_on_card_equals_cpu(dev, no_tf32, s, chunk):
+    """The chunked scan (chunks carrying the state; the serving chunk of
+    256) and 3 decode steps, on the card against the CPU, within 1e-4."""
+    from repro_torch.models import ssm
+
+    cfg, cpu, card = _layer_on_both(dev, ssm.Mamba, "jamba-v0.1-52b")
+    x = torch.randn((2, s + 3, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)) * 0.5
+    outs = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        xd = x.to(d)
+        y, st = ssm.mamba_with_state(m, xd[:, :s], chunk=chunk)
+        got = [y, st[0]]
+        for t in range(s, s + 3):
+            o, st = ssm.mamba_decode(m, xd[:, t:t + 1], st)
+            got += [o, st[0]]
+        outs.append([g.cpu() for g in got])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_on_card_equals_cpu(dev, no_tf32, kind):
+    """mLSTM over 2 chunks of 256 then a decode step; sLSTM's time loop
+    over 64 steps then a decode step: the card against the CPU, 1e-4."""
+    from repro_torch.models import xlstm
+
+    module = xlstm.MLstm if kind == "mlstm" else xlstm.SLstm
+    fwd = (xlstm.mlstm_with_state if kind == "mlstm"
+           else xlstm.slstm_with_state)
+    step = xlstm.mlstm_decode if kind == "mlstm" else xlstm.slstm_decode
+    cfg, cpu, card = _layer_on_both(dev, module, "xlstm-1.3b")
+    s = 512 if kind == "mlstm" else 64
+    x = torch.randn((2, s + 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)) * 0.5
+    outs = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        xd = x.to(d)
+        y, st = fwd(m, xd[:, :s])
+        o, st2 = step(m, xd[:, s:], st)
+        outs.append([t.cpu() for t in (y, o) + tuple(st2)])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cf", [0.5, 16.0])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_layer_on_card_equals_cpu(dev, no_tf32, arch, cf):
+    """The MoE layer on the card against the CPU: the same expert ids and
+    dispatch table, the output and the aux within 1e-4, and the output
+    the same on a second run (the combine is a gather, no atomics); at
+    cf 0.5 pairs are dropped."""
+    from repro_torch.models import moe
+
+    cfg, cpu, card = _layer_on_both(dev, moe.Moe, arch)
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
+    cpu.cfg = card.cfg = cfg
+    x = torch.randn((4, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3)) * 0.3
+    outs = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        xd = x.to(d)
+        _, _, w, idx = moe.route(m, xd)
+        cap = moe.capacity(cfg, 64)
+        disp, _, _ = moe.dispatch(idx, w, cfg.moe_num_experts, cap,
+                                  torch.float32)
+        y, aux = moe.moe(m, xd)
+        assert torch.equal(moe.moe(m, xd)[0], y)
+        outs.append([t.cpu() for t in (idx, disp, y, aux.load_balance_loss,
+                                       aux.router_z_loss,
+                                       aux.dropped_fraction)])
+    (idx0, disp0, *rest0), (idx1, disp1, *rest1) = outs
+    assert torch.equal(idx0, idx1) and torch.equal(disp0, disp1)
+    for want, got in zip(rest0, rest1):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert (float(rest1[-1]) > 0) == (cf == 0.5)
 
 
 def _wide_index(dev, n=4096, d=2304, k=10, L=4, c=64, seed=0):

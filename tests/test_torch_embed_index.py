@@ -5,8 +5,8 @@
 Users in 8 communities share a 6-token prefix; each user's embedding is
 the mean-pooled final hidden state, unit-normalised; the index is
 `build_store_host` at capacity 64 and the search `LshEngine(variant=
-"cnb")`.  The backbone is gemma2's SMOKE config (the reference test's
-xlstm is not ported yet).
+"cnb")`.  The backbones are the reference test's own, xlstm-1.3b's SMOKE
+config (mLSTM / sLSTM blocks), and gemma2's.
 """
 
 from __future__ import annotations
@@ -61,9 +61,9 @@ def embed(model, toks) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def reference(dtype):
+def reference(dtype, arch="gemma2-2b"):
     """JAX's embeddings of the users and its cnb search over them."""
-    cfg = dataclasses.replace(jget("gemma2-2b", smoke=True), dtype=dtype)
+    cfg = dataclasses.replace(jget(arch, smoke=True), dtype=dtype)
     params, _ = JM.init_model(cfg, 0)
     toks, comm = users(cfg.vocab_size)
     hidden = jax.jit(lambda p, t: JM.forward(p, cfg, {"tokens": t})[0])(
@@ -128,6 +128,26 @@ def test_cnb_search_on_embeddings_equals_reference(use_kernels):
     assert topk_swaps(ref["scores"], ref["ids"], r.scores, r.ids,
                       tol=1e-5) == 0
     assert community_share(r.ids, ref["comm"]) > 0.6
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_xlstm_embeddings_to_lsh_index(use_kernels):
+    """`tests/test_system.py:131` on the port: xlstm-1.3b's SMOKE
+    embeddings (JAX's weights) equal JAX's within 1e-5, the cnb ids over
+    them, indexed with JAX's hyperplanes, equal JAX's under the near-tie
+    rule, and the same-community share exceeds 0.6."""
+    ref = reference("bfloat16", "xlstm-1.3b")
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    emb = embed(convert.model_from(ref["params"], cfg, device="cpu"),
+                ref["toks"])
+    np.testing.assert_allclose(emb.numpy(), ref["emb"], rtol=0, atol=1e-5)
+    h = convert.hyperplanes_from(ref["h"], device="cpu")
+    _, _, engine = port_index(emb, h, use_kernels)
+    r = engine.search(emb[:NQ], m=M_TOP, exclude=np.arange(NQ))
+    assert topk_swaps(ref["scores"], ref["ids"], r.scores, r.ids,
+                      tol=1e-5) == 0
+    assert community_share(r.ids, ref["comm"]) > 0.6
+    assert community_share(ref["ids"], ref["comm"]) > 0.6
 
 
 def test_port_pipeline_retrieves_communities():

@@ -41,8 +41,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     # failure_churn, serve_retrieval and serve (LM) CLIs, obs + flight,
     # registry and trace, data + osn, convert, serve + control, frontend,
     # lifecycle, loadgen, qcache, telemetry and writer, models + config,
-    # layers and model, configs + shapes and the ten arch files
-    assert int(n) >= 63
+    # layers, model, moe, ssm and xlstm, configs + shapes and the ten
+    # arch files
+    assert int(n) >= 66
     assert lm.strip() == str(
         ["repro_torch.configs"]
         + [f"repro_torch.configs.{m}" for m in (
@@ -51,7 +52,9 @@ def test_port_imports_without_jax_or_the_jax_package():
             "phi3_vision_4_2b", "seamless_m4t_medium", "shapes",
             "starcoder2_7b", "xlstm_1_3b")]
         + ["repro_torch.models", "repro_torch.models.config",
-           "repro_torch.models.layers", "repro_torch.models.model"])
+           "repro_torch.models.layers", "repro_torch.models.model",
+           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.xlstm"])
     assert serve.strip() == str([
         "repro_torch.launch.serve", "repro_torch.launch.serve_retrieval",
         "repro_torch.serve", "repro_torch.serve.control",

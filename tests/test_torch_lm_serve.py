@@ -1,5 +1,6 @@
 """The port's LM serving driver (`repro_torch.launch.serve`) against the
-JAX package's `repro.launch.serve`, on the reduced (SMOKE) configs."""
+JAX package's `repro.launch.serve`, on the reduced (SMOKE) configs of
+every configured architecture."""
 
 from __future__ import annotations
 
@@ -14,13 +15,12 @@ from repro.configs import get_config as jget
 from repro.launch import serve as jserve
 from repro.models import model as JM
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import serve
 from repro_torch.models import model as M
-from test_torch_models import ATTN_ARCHS
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_greedy_generate_equals_reference(arch):
     """Greedy tokens of prefill + 7 decode steps equal JAX's, in f32 on
     the reference's weights and the driver's own batch."""
@@ -37,7 +37,7 @@ def test_greedy_generate_equals_reference(arch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_serve_driver(arch, capsys):
     serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "16", "--gen", "4"])

@@ -2,7 +2,9 @@
 against the JAX package's, on the reduced (SMOKE) configs.
 
 The reference's parameter tree is carried across by
-`convert.model_from`, so both packages compute on the same weights.
+`convert.model_from`, so both packages compute on the same weights; the
+whole-model tests run every configured architecture (attention, mamba,
+mLSTM / sLSTM, MoE layers).
 Tolerances: f32 runs (`dtype="float32"`) within 1e-4; the default bf16
 configs within 0.08, `tests/test_models.py`'s own bound (the decoder
 computes in f32 there too, since the reference's embedding scale
@@ -33,7 +35,6 @@ from repro_torch.models.config import count_params
 
 ATTN_ARCHS = ("gemma2-2b", "starcoder2-7b", "codeqwen1.5-7b",
               "phi3-medium-14b", "seamless-m4t-medium", "phi-3-vision-4.2b")
-OTHER_ARCHS = tuple(a for a in ARCH_NAMES if a not in ATTN_ARCHS)
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
 
 
@@ -83,13 +84,13 @@ def reference(arch, dtype):
 
     @jax.jit
     def forward(p, batch):
-        hidden = JM.forward(p, jc, batch)[0]
-        return hidden, JM.logits_from_hidden(p, jc, hidden)
+        hidden, aux, _ = JM.forward(p, jc, batch)
+        return hidden, JM.logits_from_hidden(p, jc, hidden), aux
 
     prefill = jax.jit(lambda p, batch: JM.prefill(p, jc, batch, S + 8)[:2])
     decode = jax.jit(lambda p, tok, st, pos: JM.decode_step(p, jc, tok, st,
                                                             pos))
-    hidden, logits = forward(params, jb)
+    hidden, logits, aux = forward(params, jb)
     last, states = prefill(params, dict(jb, tokens=jb["tokens"][:, :S - 4]))
     off = jc.num_prefix_embeds if jc.modality == "vision_patches" else 0
     steps = [np.asarray(last)]
@@ -98,7 +99,8 @@ def reference(arch, dtype):
                             jnp.int32(S - 4 + off + t))
         steps.append(np.asarray(lg))
     return dict(params=params, batch=b, hidden=np.asarray(hidden, np.float32),
-                logits=np.asarray(logits), steps=steps, off=off)
+                logits=np.asarray(logits), aux=np.asarray(aux), steps=steps,
+                off=off)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +239,7 @@ def test_chunked_attention_matches_dense(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_forward_equals_reference(arch, dtype):
     ref = reference(arch, dtype)
     _, tc = smoke_pair(arch, dtype)
@@ -251,7 +253,25 @@ def test_forward_equals_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_forward_aux_equals_reference(arch, dtype):
+    """The forward's aux, the MoE layers' (load-balance, z) losses summed
+    over the layers, equals the reference's `forward(...)[1]` (zeros
+    without MoE)."""
+    ref = reference(arch, dtype)
+    _, tc = smoke_pair(arch, dtype)
+    model = convert.model_from(ref["params"], tc, device="cpu")
+    hidden, aux = M.forward_with_aux(model, torch_batch(ref["batch"]))
+    assert aux.dtype == torch.float32 and aux.shape == (2,)
+    assert max_err(ref["aux"], aux) < 1e-5 * max(1.0, float(
+        np.abs(ref["aux"]).max()))
+    assert torch.equal(hidden, M.forward(model, torch_batch(ref["batch"])))
+    if not any(tc.layer_is_moe(i) for i in range(tc.num_layers)):
+        assert not aux.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_decode_equal_reference(arch, dtype):
     ref = reference(arch, dtype)
     _, tc = smoke_pair(arch, dtype)
@@ -267,10 +287,10 @@ def test_prefill_decode_equal_reference(arch, dtype):
         got.append(lg)
     errs = [max_err(a, b) for a, b in zip(ref["steps"], got)]
     assert max(errs) < TOL[dtype], errs
-    assert all(st["k"].shape[1] == S + 8 for st in states)
+    assert all(st["k"].shape[1] == S + 8 for st in states if "k" in st)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_decode_consistency(arch):
     """Teacher-forced decode reproduces the full forward's logits, on the
     port's own init (tests/test_models.py's check, on the port)."""
@@ -292,13 +312,22 @@ def test_prefill_decode_consistency(arch):
     assert bool(torch.isfinite(full).all())
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_param_count_matches_closed_form(arch):
-    """The port's model holds count_params(cfg) parameters, as the
-    reference's init does."""
+    """The port's model holds as many parameters as the reference's init
+    (leaf for leaf: `convert.model_from` checks the shapes), which is
+    count_params(cfg) exactly for the attention-only archs and within
+    `tests/test_models.py`'s 2 % for the others (xlstm's closed form is
+    256 above its init), all bf16 as the reference casts every leaf."""
     cfg = get_config(arch, smoke=True)
     model = M.Model(cfg, device="cpu")
-    assert sum(p.numel() for p in model.parameters()) == count_params(cfg)
+    n = sum(p.numel() for p in model.parameters())
+    shapes = jax.eval_shape(lambda: JM.init_model(jget(arch, smoke=True),
+                                                  0)[0])
+    assert n == sum(x.size for x in jax.tree.leaves(shapes))
+    if arch in ATTN_ARCHS:
+        assert n == count_params(cfg)
+    assert abs(n - count_params(cfg)) / count_params(cfg) < 0.02
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
 
 
@@ -326,12 +355,3 @@ def test_local_attention_window():
     h2 = M.forward(model, {"tokens": other})
     assert torch.equal(h1[0, 20:], h2[0, 20:])
     assert not torch.equal(h1[0, 1:16], h2[0, 1:16])
-
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_unported_layers_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1 item 8"):
-        M.init_model(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        M.Model(cfg, device="cpu")
