@@ -226,6 +226,35 @@ failure:
      simhash and bucket_topk held against plain on the inputs the card's
      run gives them, and quickstart's cnb spends lsh's messages for a
      higher recall@10;
+ 16. [train] (after phase 15; no kernel of the six is on this path, and
+     the phase fails if one launched), every cell with its wall time and
+     peak device memory: train_gemma2 (gemma2-2b whole at full width,
+     bf16 weights from `--seed`, batch 4 x 4096: configs/shapes.py
+     train_4k's sequence, its global batch 256 cut to 4; loss chunk 512,
+     remat on, fp32 AdamW at TRAIN_LR, warmup 2; 6 steps through
+     `train_step.make_train_step`, each step's ms, tokens/s, xent,
+     grad_norm and lr; the fp32 FLOP bound written out term by term and
+     the share reached; the optimizer's device and host ms a step; peak
+     bytes beside the state's; a 7th step traced with torch.profiler and
+     its host syncs counted; fails on a non-finite xent or unless the
+     last xent is below the first); train_gemma2_int8 (2 steps with
+     int8 state, its bytes beside fp32's; then one checkpoint of the
+     int8 tree, half the fp32 tree's bytes: bytes, save, verify and
+     restore ms, the restored tree equal to the saved one);
+     train_check (f32 copies of gemma2-2b, deepseek-moe-16b dropless,
+     jamba-v0.1-52b with its period cut to its first two layers, and
+     xlstm-1.3b, each at full width cut to 2 layers, batch 2 x 256: one
+     step's loss within 1e-4 relative and every gradient leaf within
+     1e-3 of its largest magnitude, card against CPU; `apply_updates` on
+     the CPU's gradients on both devices, parameters and moments within
+     1e-6 relative, jamba aside; gradient accumulation A = 2 against the
+     whole batch, cosine > 0.999; `launch.train` 4 steps + a checkpoint
+     + `--resume` to 6 against 6 straight steps on the gemma2 cut, bit
+     for bit under `torch.use_deterministic_algorithms(True)`: the
+     embedding's backward adds with atomics otherwise, and the
+     script's top sets `CUBLAS_WORKSPACE_CONFIG` for it);
+     train_example (`examples/torch_train_lm.py` on the card at smoke
+     size, its resume line);
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -262,6 +291,10 @@ import warnings
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 16 compares a resumed training run with a straight one under
+# torch.use_deterministic_algorithms, which needs cuBLAS's workspace fixed
+# before the first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense, tensor cores
@@ -444,6 +477,468 @@ def compare_topk(ki, ks, pi, ps, what: str,
             f"{what}: ids differ at row {r} rank {c} outside a near tie: "
             f"kernel {ki[r]} {ks[r]} plain {pi[r]} {ps[r]}")
     return err, int(((ki != pi) & near).sum())
+
+
+# -- 16. [train]: training on one card ---------------------------------------
+
+TRAIN_LR = 1e-4     # train_gemma2's peak learning rate (warmup 2, 6 steps)
+TRAIN_SHAPE = (4, 4096, 512)    # train_gemma2's batch, sequence, loss chunk
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor in a nested dict (params, grads, a
+    state)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def train_flops(cfg, b: int, s: int) -> tuple[dict, dict]:
+    """The fp32 operations of one remat train step at [b, s], term by
+    term: (those the step needs, those the port adds).  Needed: 6 N T
+    (forward and backward of every product, the tied logits included)
+    and causal attention's two products (2 x 2 b H S^2 dh a layer
+    forward, half of it unmasked; x 3 with the backward).  Added: the
+    remat's second forward over the layers (2 N_layers T) and over the
+    loss chunks (2 V d T), attention's in that second forward (4 b H
+    S^2 dh L, unmasked as the port computes it), and the masked half of
+    attention in the forward and backward (6 b H S^2 dh L)."""
+    from repro_torch.models.config import count_params
+
+    t = b * s
+    n = count_params(cfg)
+    n_embed = cfg.vocab_size * cfg.d_model
+    n_layers = n - n_embed * (1 if cfg.tie_embeddings else 2) \
+        - 2 * cfg.d_model
+    bhs = float(b * cfg.num_heads * s * s * cfg.head_dim * cfg.num_layers)
+    need = {"6NT": 6.0 * n * t, "causal attention 6 b H S^2 dh L": 6 * bhs}
+    extra = {"remat layers 2 N_layers T": 2.0 * n_layers * t,
+             "remat loss 2 V d T": 2.0 * n_embed * t,
+             "remat attention 4 b H S^2 dh L": 4 * bhs,
+             "masked attention half 6 b H S^2 dh L": 6 * bhs}
+    return need, extra
+
+
+def train_phase(torch, dev, smi: str, seed: int) -> None:
+    """Phase 16: training on the card (DESIGN.md Sec. 6).  No kernel of
+    the six is on this path: the LM stack's products are torch ops."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as lm
+    from repro_torch.models.config import count_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    @contextlib.contextmanager
+    def cell(name):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        log(f"[train] {name}: cell wall {(time.perf_counter() - t0) * 1e3:.1f}"
+            f" ms, peak device bytes {torch.cuda.max_memory_allocated()} "
+            f"({start} in use at its start) ({smi})")
+
+    # the optimizer's share of a step: host time of the call (launches
+    # only; the host does not wait) and its device time between events
+    opt_times = []
+    real_apply = opt.apply_updates
+
+    def timed_apply(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        out = real_apply(*a, **kw)
+        host = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        opt_times.append((host, ev))
+        return out
+
+    def run_steps(name, model, state, step_fn, steps, b, s):
+        """`steps` steps on make_batch's batches 0..steps-1, each timed by
+        a CUDA event pair and read back after it: [(ms, metrics)]."""
+        cfg = model.cfg
+        out = []
+        for i in range(steps):
+            batch = tok.make_batch(cfg, tok.DataConfig(seed=seed), i, b, s,
+                                   device=dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            state, m = step_fn(model, state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            m = {k: float(v) for k, v in m.items()}
+            ms = ev[0].elapsed_time(ev[1])
+            out.append((ms, m))
+            log(f"[train] {name} step {i}: {ms:.1f} ms, "
+                f"{b * s / ms * 1e3:.0f} tokens/s, xent {m['xent']:.4f}, "
+                f"grad_norm {m['grad_norm']:.4f}, lr {m['lr']:.3g}")
+            if not np.isfinite(m["xent"]):
+                raise AssertionError(f"{name}: non-finite xent at step {i}")
+        return state, out
+
+    def checkpoint_round_trip(name, model, state):
+        """One checkpoint of {params, opt}: bytes, save / verify /
+        restore ms, the restored tree equal to the saved one."""
+        tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+        tree = {"params": model.state_dict(), "opt": state}
+        try:
+            free = shutil.disk_usage(tmp).free
+            need = sum(4 * t.numel() if t.dtype == torch.bfloat16
+                       else t.numel() * t.element_size()
+                       for _, t in ckpt._leaves(tree))
+            log(f"[train] {name} checkpoint dir {tmp}: {free} bytes free; "
+                f"this tree writes {need} bytes (params widened to f32)")
+            if free < 1.1 * need:
+                raise AssertionError(f"{name}: {free} free bytes for a "
+                                     f"{need}-byte checkpoint")
+            t0 = time.perf_counter()
+            path = ckpt.save(tmp, 7, tree, extra={"arch": "gemma2-2b"})
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ok = ckpt.verify(path)
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            back = ckpt.restore(path, tree)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+            same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                ckpt._leaves(tree), ckpt._leaves(back)))
+            del back
+            log(f"[train] {name} checkpoint: {nbytes} bytes (arrays.npz), "
+                f"save {save_ms:.0f} ms (sha256 while writing), verify "
+                f"{verify_ms:.0f} ms, restore to the card {restore_ms:.0f} ms "
+                f"(its own verify included); checksum "
+                f"{'ok' if ok else 'BAD'}; restored tree "
+                f"{'equals' if same else 'DIFFERS FROM'} the saved one")
+            if not (ok and same):
+                raise AssertionError(f"{name}: checkpoint round trip")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    gemma = get_config("gemma2-2b")
+    B, S, CHUNK = TRAIN_SHAPE
+    hp = ts.TrainHParams(loss_chunk=CHUNK)
+    phase_wall = time.perf_counter()
+    log(f"[train] gemma2-2b at full width ({count_params(gemma):.0f} params, "
+        f"{gemma.vocab_size * gemma.d_model} of them the tied embedding), "
+        f"batch {B} x seq {S} (configs/shapes.py train_4k's sequence; its "
+        f"global batch 256 cut to {B}), loss chunk {CHUNK}, remat on, bf16 "
+        f"weights from --seed, fp32 products (TF32 off)")
+    need, extra = train_flops(gemma, B, S)
+    need_fl, extra_fl = sum(need.values()), sum(extra.values())
+    bound_ms = need_fl / FP32_FLOPS_PER_S * 1e3
+    done_ms = (need_fl + extra_fl) / FP32_FLOPS_PER_S * 1e3
+    log(f"[train] fp32 FLOP bound of a step: "
+        + " + ".join(f"{k} {v:.3e}" for k, v in need.items())
+        + f" = {need_fl:.3e} FLOP over {FP32_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s = {bound_ms:.1f} ms; the port also computes "
+        + " + ".join(f"{k} {v:.3e}" for k, v in extra.items())
+        + f" = {extra_fl:.3e} FLOP, {need_fl + extra_fl:.3e} in all "
+        f"= {done_ms:.1f} ms")
+
+    with cell("train_gemma2"):
+        model = lm.init_model(gemma, seed, device=dev)
+        params = dict(model.named_parameters())
+        ocfg = opt.OptConfig(peak_lr=TRAIN_LR, warmup_steps=2,
+                             decay_steps=6)
+        state = opt.init_opt_state(params, ocfg)
+        p_bytes, s_bytes = tree_bytes(params), tree_bytes(state)
+        step_fn = ts.make_train_step(gemma, ocfg, hp)
+        opt.apply_updates = timed_apply
+        try:
+            state, steps = run_steps("train_gemma2", model, state, step_fn,
+                                     6, B, S)
+        finally:
+            opt.apply_updates = real_apply
+        peak = torch.cuda.max_memory_allocated()
+        ms = [m for m, _ in steps]
+        med = float(np.median(ms[1:]))
+        xents = [m["xent"] for _, m in steps]
+        opt_host = [h for h, _ in opt_times[1:]]
+        opt_dev = [e[0].elapsed_time(e[1]) for _, e in opt_times[1:]]
+        log(f"[train] train_gemma2: step median {med:.1f} ms after the first "
+            f"({ms[0]:.1f} ms), {B * S / med * 1e3:.0f} tokens/s; fp32 bound "
+            f"{bound_ms:.1f} ms, share reached {bound_ms / med:.3f} (of the "
+            f"{done_ms:.1f} ms that the FLOPs it computes take, remat and "
+            f"masked attention included: {done_ms / med:.3f}); xent "
+            f"{xents[0]:.4f} -> {xents[-1]:.4f}; the optimizer "
+            f"(apply_updates) {np.median(opt_dev):.1f} ms of device time "
+            f"and {np.median(opt_host):.1f} ms of host time a step (the "
+            f"call's return, waits for launch-queue room included); peak "
+            f"device bytes {peak} beside the state: bf16 params {p_bytes}, "
+            f"bf16 grads {p_bytes}, fp32 m and v {s_bytes}, "
+            f"{2 * p_bytes + s_bytes} in all ({smi})")
+        if not xents[-1] < xents[0]:
+            raise AssertionError(f"train_gemma2: xent did not fall "
+                                 f"({xents})")
+        # one more step, traced, its host syncs counted
+        batch = tok.make_batch(gemma, tok.DataConfig(seed=seed), 6, B, S,
+                               device=dev)
+        syncs = []
+
+        def traced_step():
+            nonlocal state
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, _ = step_fn(model, state, batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs.extend(w for w in caught if "called a synchronizing"
+                         in str(w.message))
+
+        rows, wall, _ = profile_batch(torch, "train_gemma2 step",
+                                      traced_step, top=14)
+        busy = sum(r[0] for r in rows)
+        log(f"[train] train_gemma2 traced step: {sum(r[1] for r in rows)} "
+            f"device ops, busy share {busy / wall:.3f} "
+            f"({'device-bound' if busy / wall >= 0.5 else 'host-bound'}); "
+            f"host syncs in the step {len(syncs)}"
+            + (f" (first: {str(syncs[0].message)[:120]})" if syncs else ""))
+        del params, step_fn, batch
+        checkpoint_round_trip("train_gemma2", model, state)
+        del model, state
+
+    with cell("train_gemma2_int8"):
+        ocfg8 = opt.OptConfig(peak_lr=TRAIN_LR, warmup_steps=2,
+                              decay_steps=6, state_dtype="int8")
+        model = lm.init_model(gemma, seed, device=dev)
+        state = opt.init_opt_state(dict(model.named_parameters()), ocfg8)
+        s8 = tree_bytes(state)
+        state, steps = run_steps("train_gemma2_int8", model, state,
+                                 ts.make_train_step(gemma, ocfg8, hp), 2, B,
+                                 S)
+        log(f"[train] train_gemma2_int8: step {steps[1][0]:.1f} ms (first "
+            f"{steps[0][0]:.1f}); int8 state {s8} bytes beside fp32's "
+            f"{s_bytes} ({s8 / s_bytes:.3f}); peak device bytes "
+            f"{torch.cuda.max_memory_allocated()} ({smi})")
+        del model, state
+
+    def rel_err(card_t, cpu_t) -> float:
+        """max |got - want| / max |want|, computed on the card."""
+        with torch.no_grad():
+            want = cpu_t.detach().to(dev)
+            return float((card_t.detach() - want).abs().max()
+                         / torch.clamp(want.abs().max(), min=1e-30))
+
+    def train_check(arch):
+        """An f32 copy at full width cut to 2 layers (jamba's period of 8
+        cut to its first two layers, attention + MLP and mamba + MoE, as
+        a period of 2; deepseek dropless, as phase 14's lm_check makes
+        it): one step's loss and gradients on the card against the CPU
+        from the same weights and batch; then `apply_updates` given the
+        CPU's gradients on both devices (not on jamba's 3.7 B f32
+        parameters: the update is blind to the arch, and their CPU
+        update would double the cell's time)."""
+        full = get_config(arch)
+        cut = dataclasses.replace(full, dtype="float32", num_layers=2,
+                                  scan_period=min(full.scan_period, 2))
+        if arch == "deepseek-moe-16b":
+            cut = dataclasses.replace(cut, moe_capacity_factor=float(
+                cut.moe_num_experts) / cut.moe_top_k)
+        t0 = time.perf_counter()
+        card = lm.init_model(cut, seed, device=dev)
+        cpu = lm.Model(cut, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        hp2 = ts.TrainHParams(loss_chunk=256)
+        out, secs = {}, {}
+        for key, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            batch = tok.make_batch(cut, tok.DataConfig(seed=seed), 0, 2, 256,
+                                   device=d)
+            params = ts.parameters(model)
+            t1 = time.perf_counter()
+            loss, _ = ts.make_loss_fn(cut, hp2)(model, batch)
+            out[key] = (float(loss.detach()), ts.grads_of(loss, params),
+                        params)
+            torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t1
+        card_peak = torch.cuda.max_memory_allocated()
+        (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = out["card"], \
+            out["cpu"]
+        del out
+        l_err = abs(l_card - l_cpu) / abs(l_cpu)
+        g_err = max(rel_err(g_card[n], g) for n, g in g_cpu.items())
+        del g_card
+        t1 = time.perf_counter()
+        u_err = None
+        if arch != "jamba-v0.1-52b":
+            ocfg2 = opt.OptConfig(peak_lr=1e-3, warmup_steps=0,
+                                  decay_steps=10)
+            _, st_card, _ = opt.apply_updates(
+                p_card, {n: g.to(dev) for n, g in g_cpu.items()},
+                opt.init_opt_state(p_card, ocfg2), ocfg2)
+            _, st_cpu, _ = opt.apply_updates(
+                p_cpu, g_cpu, opt.init_opt_state(p_cpu, ocfg2), ocfg2)
+            u_err = max(max(rel_err(p_card[n], p_cpu[n]),
+                            rel_err(st_card["mu"][n]["m"],
+                                    st_cpu["mu"][n]["m"]),
+                            rel_err(st_card["mu"][n]["v"],
+                                    st_cpu["mu"][n]["v"]))
+                        for n in p_cpu)
+        secs["update"] = time.perf_counter() - t1
+        log(f"[train] train_check {arch} full width cut to 2 layers "
+            f"({count_params(cut):.0f} params; kinds "
+            f"{[cut.layer_kind(i) for i in range(2)]}, MoE "
+            f"{[cut.layer_is_moe(i) for i in range(2)]}), f32, 2 x 256 "
+            f"tokens: card vs CPU loss {l_err:.3g} relative (gate 1e-4), "
+            f"worst gradient leaf {g_err:.3g} of its largest magnitude "
+            f"(gate 1e-3); apply_updates on the CPU's gradients: parameters "
+            f"and moments "
+            + (f"{u_err:.3g} relative (gate 1e-6)" if u_err is not None
+               else "not run")
+            + f"; card peak {card_peak} bytes in the step (the optimizer "
+            f"aside), {tree_bytes(p_cpu)} of them the f32 parameters; "
+            f"{time.perf_counter() - t0:.1f} s (card step "
+            f"{secs['card']:.1f} s, CPU step {secs['cpu']:.1f} s, updates "
+            f"and their comparison {secs['update']:.1f} s)")
+        if l_err > 1e-4 or g_err > 1e-3 or (u_err or 0.0) > 1e-6:
+            raise AssertionError(f"train_check {arch}: card != CPU (loss "
+                                 f"{l_err}, grads {g_err}, update {u_err})")
+
+    for arch in ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
+                 "xlstm-1.3b"):
+        with cell(f"train_check {arch}"):
+            train_check(arch)
+
+    with cell("train_check accumulation and resume"):
+        # gradient accumulation on the card: A = 2 against the whole batch
+        cut = dataclasses.replace(gemma, num_layers=2)
+        model = lm.init_model(cut, seed, device=dev)
+        p = ts.parameters(model)
+        loss_fn = ts.make_loss_fn(cut, ts.TrainHParams(loss_chunk=256))
+        batch = tok.make_batch(cut, tok.DataConfig(seed=seed), 0, 2, 256,
+                               device=dev)
+        full, _ = loss_fn(model, batch)
+        g_full = ts.grads_of(full, p)
+        g_sum = {n: torch.zeros(v.shape, device=dev) for n, v in p.items()}
+        l_sum = 0.0
+        for i in range(2):
+            loss, _ = loss_fn(model, {k: v[i:i + 1] for k, v in
+                                      batch.items()})
+            l_sum += float(loss.detach())
+            for n, g in ts.grads_of(loss, p).items():
+                g_sum[n] += g.float()
+        a = torch.cat([g.float().ravel() for g in g_full.values()])
+        b = torch.cat([(g / 2).ravel() for g in g_sum.values()])
+        cos = float(a @ b / (a.norm() * b.norm()))
+        log(f"[train] train_check grad accumulation, gemma2-2b bf16 cut to "
+            f"2 layers, 2 x 256: A = 2 in f32 against the whole batch, "
+            f"loss {l_sum / 2:.6f} vs {float(full.detach()):.6f}, gradient "
+            f"cosine {cos:.6f} (gate > 0.999)")
+        if cos <= 0.999:
+            raise AssertionError(f"train_check grad accumulation: cosine "
+                                 f"{cos}")
+        del model, p, g_full, g_sum, a, b
+
+        # the entry point: make_grad_accum_train_step (A = 2 microbatches
+        # of 1, f32 sums, then apply_updates) against make_train_step on
+        # the whole batch, from the same f32 weights and state
+        cut32 = dataclasses.replace(cut, dtype="float32")
+        ocfg2 = opt.OptConfig(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+        hp2 = ts.TrainHParams(loss_chunk=256)
+        acc = lm.init_model(cut32, seed, device=dev)
+        whole = lm.Model(cut32, device=dev)
+        whole.load_state_dict(acc.state_dict())
+        st_acc = opt.init_opt_state(dict(acc.named_parameters()), ocfg2)
+        st_whole = opt.init_opt_state(dict(whole.named_parameters()), ocfg2)
+        st_acc, m_acc = ts.make_grad_accum_train_step(cut32, ocfg2, hp2, 2)(
+            acc, st_acc, {k: v.reshape(2, 1, *v.shape[1:])
+                          for k, v in batch.items()})
+        st_whole, m_whole = ts.make_train_step(cut32, ocfg2, hp2)(
+            whole, st_whole, batch)
+        m_err = {k: abs(float(m_acc[k]) - float(m_whole[k]))
+                 / abs(float(m_whole[k])) for k in ("loss", "grad_norm")}
+        mom_err = max(rel_err(st_acc["mu"][n]["m"], st_whole["mu"][n]["m"])
+                      for n in st_whole["mu"])
+        lr = float(m_whole["lr"])
+        n_far = n_all = 0
+        d_worst = 0.0   # the largest move apart, in learning rates
+        with torch.no_grad():
+            for (n, pa), pw in zip(acc.named_parameters(),
+                                   whole.parameters()):
+                d = (pa - pw).abs()
+                tol = 1e-6 * float(pw.abs().max())
+                n_far += int((d > tol).sum())
+                n_all += pw.numel()
+                d_worst = max(d_worst, (float(d.max()) - tol) / lr)
+        log(f"[train] train_check make_grad_accum_train_step, gemma2-2b f32 "
+            f"cut to 2 layers, [2, 1, 256] against make_train_step on "
+            f"[2, 256] from the same state: loss {m_err['loss']:.3g} and "
+            f"grad_norm {m_err['grad_norm']:.3g} relative (gate 1e-5); first"
+            f" moments {mom_err:.3g} of each leaf's largest magnitude (gate "
+            f"1e-3); parameters more than 1e-6 of their leaf's largest "
+            f"magnitude apart: {n_far} of {n_all} (gate 1 in 1000), the "
+            f"farthest {d_worst:.3f} learning rates beyond that (gate 2.2: "
+            f"Adam's first step moves a parameter by about lr sign(g))")
+        if (max(m_err.values()) > 1e-5 or mom_err > 1e-3
+                or n_far >= 1e-3 * n_all or d_worst > 2.2):
+            raise AssertionError(f"train_check make_grad_accum_train_step: "
+                                 f"{m_err}, moments {mom_err}, {n_far} of "
+                                 f"{n_all} far, worst {d_worst} lr")
+        del acc, whole, st_acc, st_whole, batch
+
+        # resume: 4 steps + a checkpoint + --resume to 6 against 6 straight
+        # steps, under deterministic algorithms (the embedding's backward
+        # adds with atomics otherwise), bit for bit
+        cut16 = dataclasses.replace(gemma, num_layers=2)
+        argv = ["--arch", "gemma2-2b", "--device", "cuda", "--batch", "2",
+                "--seq", "256", "--ckpt-every", "4", "--log-every", "1",
+                "--opt-state", "int8", "--seed", str(seed)]
+        tmp = tempfile.mkdtemp(prefix="train_resume_")
+        lines = []
+        torch.use_deterministic_algorithms(True)
+        try:
+            train_mod.run(train_mod.parse_args(
+                argv + ["--steps", "4", "--ckpt-dir", tmp]), cfg=cut16,
+                log=lines.append)
+            resumed, _ = train_mod.run(train_mod.parse_args(
+                argv + ["--steps", "6", "--ckpt-dir", tmp, "--resume"]),
+                cfg=cut16, log=lines.append)
+            straight, _ = train_mod.run(train_mod.parse_args(
+                argv + ["--steps", "6"]), cfg=cut16, log=lambda s: None)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            shutil.rmtree(tmp, ignore_errors=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            resumed.state_dict().values(), straight.state_dict().values()))
+        resume_line = next(s for s in lines if s.startswith("[resume]"))
+        log(f"[train] train_check resume, gemma2-2b bf16 cut to 2 layers, "
+            f"2 x 256, int8 state: {resume_line.split(' (')[-1].rstrip(')')} -> 6 under "
+            f"torch.use_deterministic_algorithms(True): parameters "
+            f"{'equal' if same else 'DIFFER FROM'} 6 straight steps bit for "
+            f"bit")
+        if not same:
+            raise AssertionError("train_check resume: resumed != straight")
+        del resumed, straight
+
+    with cell("train_example"):
+        import torch_train_lm
+
+        ex_lines = []
+        torch_train_lm.run(device="cuda", log=ex_lines.append)
+        resume = [s for s in ex_lines if s.startswith("[resume]")]
+        xe = [float(s.split("xent=")[1].split()[0]) for s in ex_lines
+              if s.startswith("[step")]
+        log(f"[train] train_example examples/torch_train_lm.py (gemma2-2b "
+            f"smoke, 200 steps, preempted at 100): "
+            f"{resume[0] if resume else 'no resume line'}; xent "
+            f"{xe[0]:.4f} -> {xe[-1]:.4f}")
+        if not resume or not xe[-1] < xe[0]:
+            raise AssertionError("train_example: no resume or no progress")
+    log(f"[train] phase 16 in {time.perf_counter() - phase_wall:.1f} s")
 
 
 def main() -> int:
@@ -3363,6 +3858,17 @@ def main() -> int:
         f"the CPU's (one weight draw; near-tie id swaps {swaps_rs}); phase "
         f"in {time.perf_counter() - ex_wall:.1f} s")
     del qs, rs
+
+    # -- 16. [train]: training on one card; no kernel of the six ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    train_phase(torch, dev, smi, args.seed)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"train: launched an index kernel "
+                             f"{dict(ops.LAUNCHES)}")
+    log(f"[launches] train (phase 16, not a kernel path): "
+        f"{dict(ops.LAUNCHES)}")
 
     # -- 13. kernels line ---------------------------------------------------
     for name, k in kernels.items():

@@ -1,10 +1,13 @@
 """Carry state across from the JAX package.
 
 The port's counterpart of loading weights: hyperplanes, a bucket store,
-a dense or sparse corpus and an LM's parameter tree built by `repro`
-(JAX arrays, or numpy arrays in the same layout) become the port's
-objects, so both packages compute on the same state.  Nothing here imports JAX: `np.asarray` reads a JAX array
-without it.  uint32 codes and words become int32 bit patterns.
+a dense or sparse corpus, an LM's parameter tree and its optimizer
+state built by `repro` (JAX arrays, or numpy arrays in the same layout)
+become the port's objects, so both packages compute on the same state;
+`leaves_by_name` maps any tree shaped as the reference's params (its
+gradients too) onto the port's parameter names.  Nothing here imports
+JAX: `np.asarray` reads a JAX array without it.  uint32 codes and words
+become int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -86,34 +89,91 @@ def _layer_leaves(blocks, n_layers: int, period: int, prefix: str):
             yield f"{prefix}.{i}.{path}", np.asarray(leaf)[i // period]
 
 
-def model_from(params, cfg: ModelConfig, *, device=None) -> Model:
-    """The reference's LM parameter tree (`repro.models.model.init_model`'s
-    params, as JAX or numpy arrays) -> the port's `Model` holding the
-    same values.  bf16 leaves (ml_dtypes numpy arrays, which
-    `torch.from_numpy` refuses) travel through f32, exact both ways."""
-    model = Model(cfg, device=device)
-    src = dict(_layer_leaves(params["blocks"], cfg.num_layers,
+def _reference_leaves(tree, cfg: ModelConfig) -> dict:
+    """{reference name: numpy leaf} of a tree shaped as the reference's
+    params, each layer's leaves taken out of their [num_periods] stack."""
+    src = dict(_layer_leaves(tree["blocks"], cfg.num_layers,
                              cfg.scan_period, "blocks"))
     if cfg.encoder_layers:
-        src.update(_layer_leaves(params["encoder"]["blocks"],
+        src.update(_layer_leaves(tree["encoder"]["blocks"],
                                  cfg.encoder_layers, 1, "encoder"))
     for key in ("embed", "lm_head", "prefix_proj", "final_norm",
                 "enc_norm"):
-        if key in params:
-            src[key] = np.asarray(params[key])
+        if key in tree:
+            src[key] = np.asarray(tree[key])
+    return src
+
+
+def leaves_by_name(tree, model: Model) -> dict:
+    """The name map: a tree shaped as the reference's LM params (its
+    params, its gradients, or one moment of its optimizer state; JAX or
+    numpy arrays) -> {the port's parameter name: numpy array}, the
+    [num_periods] stacking undone.  Norms are leaves in the reference
+    and `RmsNorm` modules here (`<name>.weight`)."""
+    names = dict(model.named_parameters())
+    out = {}
+    for name, leaf in _reference_leaves(tree, model.cfg).items():
+        key = name if name in names else name + ".weight"
+        if key not in names:
+            raise ValueError(f"{name}: no such parameter in the port")
+        out[key] = leaf
+    if len(out) != len(names):
+        raise ValueError(f"{len(out)} leaves for {len(names)} parameters")
+    return out
+
+
+def _f32(leaf) -> torch.Tensor:
+    """bf16 leaves (ml_dtypes numpy arrays, which `torch.from_numpy`
+    refuses) travel through f32, exact both ways."""
+    return torch.from_numpy(np.array(leaf, np.float32))
+
+
+def model_from(params, cfg: ModelConfig, *, device=None) -> Model:
+    """The reference's LM parameter tree (`repro.models.model.init_model`'s
+    params, as JAX or numpy arrays) -> the port's `Model` holding the
+    same values."""
+    model = Model(cfg, device=device)
     state = model.state_dict()
-    for name, leaf in src.items():
-        # norms are leaves in the reference, RmsNorm modules here
-        dst = state.get(name)
-        if dst is None:
-            dst = state[name + ".weight"]
-        a = np.array(leaf, np.float32)  # a writable copy
-        if tuple(a.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {a.shape} != {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(a))
-    if len(src) != len(state):
-        raise ValueError(f"{len(src)} leaves for {len(state)} parameters")
+    for name, leaf in leaves_by_name(params, model).items():
+        if tuple(leaf.shape) != tuple(state[name].shape):
+            raise ValueError(f"{name}: shape {leaf.shape} != "
+                             f"{tuple(state[name].shape)}")
+        state[name].copy_(_f32(leaf))
     return model
+
+
+_MOMENTS = (("m", "v"), ("m_q", "m_s", "v_q", "v_s"))
+
+
+def _moment(tree, key: str):
+    """The reference's `mu` tree with each parameter's moment dict
+    replaced by its entry `key`."""
+    if set(tree) in [set(k) for k in _MOMENTS]:
+        return tree[key]
+    return {k: _moment(v, key) for k, v in tree.items()}
+
+
+def opt_state_from(state, model: Model) -> dict:
+    """The reference's optimizer state (`repro.train.optimizer.
+    init_opt_state` / `apply_updates`', fp32 or int8, as JAX or numpy
+    arrays) -> the port's: {"count": int32, "mu": {parameter name:
+    {"m", "v"} f32 | {"m_q", "m_s", "v_q", "v_s"}}} on the model's
+    device."""
+    dev = model.device
+    mu = state["mu"]
+    first = mu["embed"]
+    keys = next(k for k in _MOMENTS if set(first) == set(k))
+    by_key = {k: leaves_by_name(_moment(mu, k), model) for k in keys}
+    out = {name: {} for name in by_key[keys[0]]}
+    for k, leaves in by_key.items():
+        for name, leaf in leaves.items():
+            a = np.asarray(leaf)
+            t = (torch.from_numpy(np.array(a)) if a.dtype == np.int8
+                 else _f32(a))
+            out[name][k] = t.to(dev)
+    count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                         device=dev)
+    return {"count": count, "mu": out}
 
 
 def decode_states_from(states, cfg: ModelConfig, *, device=None) -> list:

@@ -3,7 +3,8 @@ decode, on one device.
 
 The port of `repro.launch.serve`, for every configured architecture
 (`--arch`, one of `configs.ARCH_NAMES`: attention, mamba + attention +
-MoE, mLSTM / sLSTM, MoE).  The decode loop keeps the tokens on the
+MoE, mLSTM / sLSTM, MoE).  Prefill, decode and `generate` run under
+`torch.no_grad()`.  The decode loop keeps the tokens on the
 device and makes no host sync per step: each step's position is a host
 int, the next token an argmax on the device, and the tokens come back
 once, after the last step.
@@ -27,6 +28,7 @@ from repro_torch.obs.trace import Tracer
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
+    @torch.no_grad()
     def prefill(model: M.Model, batch):
         return M.prefill(model, batch, max_len)
 
@@ -34,6 +36,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
 
 
 def make_decode_step(cfg: ModelConfig, greedy: bool = True):
+    @torch.no_grad()
     def decode(model: M.Model, states, token, pos: int,
                generator: torch.Generator | None = None):
         logits, states = M.decode_step(model, token, states, pos)
@@ -47,10 +50,13 @@ def make_decode_step(cfg: ModelConfig, greedy: bool = True):
     return decode
 
 
+@torch.no_grad()
 def generate(model: M.Model, batch, steps: int, max_len: int,
              greedy: bool = True, seed: int = 0) -> torch.Tensor:
     """Prefill, then `steps - 1` decode steps.  Returns the [B, steps]
-    int32 tokens on the model's device (not synchronised)."""
+    int32 tokens on the model's device (not synchronised).  The steps
+    run under `torch.no_grad()`: a model being trained records no graph
+    here."""
     cfg = model.cfg
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg, greedy)
@@ -105,7 +111,7 @@ def main(argv=None):
     if args.mesh_data != 1 or args.mesh_model != 1:
         raise ValueError("the port serves on one device: --mesh-data and "
                          "--mesh-model must be 1 until models/sharding.py "
-                         "is ported (ROADMAP 1 item 8d)")
+                         "is ported (ROADMAP 1 item 8e)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)

@@ -35,7 +35,8 @@ def _draw(p: torch.Tensor, g: torch.Generator, scale: float | None = None):
 
 
 def _empty(shape, device, dtype) -> nn.Parameter:
-    """An uninitialised parameter; inference only, so no autograd."""
+    """An uninitialised parameter, without autograd until a trainer
+    turns it on (`model.requires_grad_(True)`)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 

@@ -10,7 +10,12 @@ Its feed-forward is an MoE layer where `cfg.layer_is_moe(i)`
 xLSTM blocks, which then have no norm2 either).
 
 The layers run as a Python loop over `num_layers` blocks: layer i is the
-reference's period `i // scan_period`, sub-layer `i % scan_period`.
+reference's period `i // scan_period`, sub-layer `i % scan_period`.  A
+training forward that records a graph runs each period (and each
+encoder layer) under `unroll.maybe_checkpoint`, as the reference does:
+the backward recomputes one period at a time.  Parameters are created
+with `requires_grad=False`; a trainer turns them on
+(`model.requires_grad_(True)`).
 
 Entry points, as the reference's:
   forward(model, batch)          -> hidden [B, S, d]
@@ -44,6 +49,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Attention, Mlp, RmsNorm
+from repro_torch.models.unroll import maybe_checkpoint
 
 # each recurrent mixer: its module, its full-sequence and its one-token
 # function, and the names of its state tuple's fields, in order
@@ -227,31 +233,70 @@ def _embed_inputs(model: Model, batch) -> torch.Tensor:
     return torch.cat([p.float() for p in parts], dim=1)
 
 
-def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+def _remat(f, mode: str):
+    """`f` under `unroll.maybe_checkpoint` where a training forward
+    records a graph, as the reference wraps each period (and encoder
+    layer) in `maybe_checkpoint`; prefill and decode run `f` as is."""
+    if mode == "train" and torch.is_grad_enabled():
+        return maybe_checkpoint(f)
+    return f
+
+
+def _encoder_layer(blk: Block, x, positions):
+    x = x + blk.attn(blk.norm1(x), positions, causal=False)
+    return x + blk.mlp(blk.norm2(x))
+
+
+def _encode(model: Model, frames: torch.Tensor,
+            mode: str = "train") -> torch.Tensor:
     """Bidirectional encoder over frontend-provided frame embeddings."""
     dt = _dtype(model.cfg)
     x = frames.to(dt) @ model.prefix_proj
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
+    layer = _remat(_encoder_layer, mode)
     for blk in model.encoder:
-        x = x + blk.attn(blk.norm1(x), positions, causal=False)
-        x = x + blk.mlp(blk.norm2(x))
+        x = layer(blk, x, positions)
     return model.enc_norm(x)
 
 
+def _period(blocks, x, positions, enc_out, mode: str):
+    """One period of `cfg.scan_period` blocks: (x, the period's aux
+    [2], each block's state), the aux summed from zeros as the
+    reference's `_period_forward` sums it."""
+    aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+    states = []
+    for blk in blocks:
+        x, st, a = blk(x, positions, enc_out=enc_out, mode=mode)
+        states.append(st)
+        if a is not None:
+            aux = aux + a
+    return x, aux, states
+
+
+def _train_period(blocks, x, positions, enc_out):
+    x, aux, _ = _period(blocks, x, positions, enc_out, "train")
+    return x, aux
+
+
 def _run(model: Model, batch, mode: str):
-    enc_out = (_encode(model, batch["frames"]) if model.cfg.encoder_layers
-               else None)
+    enc_out = (_encode(model, batch["frames"], mode)
+               if model.cfg.encoder_layers else None)
     x = _embed_inputs(model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None].expand(x.shape[:2])
     states = []
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
-        x, st, a = blk(x, positions, enc_out=enc_out, mode=mode)
-        states.append(st)
-        if a is not None:
-            aux = aux + a
+    period = model.cfg.scan_period
+    train = _remat(_train_period, mode)
+    for p0 in range(0, len(model.blocks), period):
+        blocks = model.blocks[p0:p0 + period]
+        if mode == "train":
+            x, a = train(blocks, x, positions, enc_out)
+        else:
+            x, a, st = _period(blocks, x, positions, enc_out, mode)
+            states.extend(st)
+        aux = aux + a
     return model.final_norm(x), states, aux
 
 

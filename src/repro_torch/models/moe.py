@@ -134,14 +134,14 @@ def _expert_compute(p: Moe, xe: torch.Tensor) -> torch.Tensor:
     e, _, d = xe.shape
     f = p.w_gate.shape[2]
     step = max(1, EXPERT_BLOCK_BYTES // (d * f * xe.element_size()))
-    ye = torch.empty_like(xe)
+    blocks = []  # no `out=`: autograd differentiates none of those
     for e0 in range(0, e, step):
         sl = slice(e0, e0 + step)
         x = xe[sl]
         h = F.silu(torch.bmm(x, p.w_gate[sl].to(xe.dtype))) \
             * torch.bmm(x, p.w_up[sl].to(xe.dtype))
-        torch.bmm(h, p.w_down[sl].to(xe.dtype), out=ye[sl])
-    return ye
+        blocks.append(torch.bmm(h, p.w_down[sl].to(xe.dtype)))
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
 
 
 def moe(p: Moe, x: torch.Tensor):

@@ -5,7 +5,8 @@ with no host sync, the churn writer's stream handoff, a batch in
 flight across an update; the LM serving path: the SMOKE models of every
 architecture on the card against the CPU, the mamba, mLSTM / sLSTM and
 MoE layers on the card against the CPU, decode loops with no host
-sync, and the
+sync, one training step of every SMOKE arch against the CPU and a
+resumed training run against a straight one, and the
 index kernels at gemma2-2b's width (D = 2304); every grid the autotune
 sweep may pick against the plain versions; and the process mesh
 over NCCL at the one card's world size of 1: its collectives, a search,
@@ -20,6 +21,7 @@ where `torch.cuda.is_available()` is false.  On the card:
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -41,6 +43,9 @@ from torch_fused_cases import CONTAINS_CASES, contains_case, edge_case_rows
 from torch_parity_rules import flips_outside_band, topk_swaps
 
 pytestmark = pytest.mark.cuda
+# the resume test runs under torch.use_deterministic_algorithms, which
+# needs cuBLAS's workspace fixed before the test run's first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -834,6 +839,89 @@ def test_moe_layer_on_card_equals_cpu(dev, no_tf32, arch, cf):
     for want, got in zip(rest0, rest1):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     assert (float(rest1[-1]) > 0) == (cf == 0.5)
+
+
+ALL_ARCHS = ("gemma2-2b", "starcoder2-7b", "codeqwen1.5-7b",
+             "phi3-medium-14b", "seamless-m4t-medium", "phi-3-vision-4.2b",
+             "xlstm-1.3b", "jamba-v0.1-52b", "deepseek-moe-16b",
+             "llama4-maverick-400b-a17b")
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_step_on_card_equals_cpu(dev, no_tf32, arch):
+    """One training step of the SMOKE config in f32 (MoE layers
+    dropless), on the card against the CPU from the same weights and
+    batch: the loss within 1e-4 relative, each gradient leaf within 1e-3
+    of its largest magnitude (chip_smoke.py's train_check gates); then
+    `apply_updates` given the CPU's gradients on both devices:
+    parameters and moments within 1e-6 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as tok
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if cfg.moe_num_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+            cfg.moe_num_experts) / cfg.moe_top_k)
+    cpu = M.init_model(cfg, 0, device="cpu")
+    card = M.Model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    ocfg = opt.OptConfig(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    hp = ts.TrainHParams(loss_chunk=16)
+    out = {}
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        batch = tok.make_batch(cfg, tok.DataConfig(), 0, 2, 32, device=d)
+        p = ts.parameters(model)
+        loss, _ = ts.make_loss_fn(cfg, hp)(model, batch)
+        out[d] = (float(loss.detach()), ts.grads_of(loss, p), p)
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out[dev]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for name, g in g_cpu.items():
+        assert _rel_err(g_card[name], g) <= 1e-3, name
+    states = {}
+    for p, d in ((p_cpu, "cpu"), (p_card, dev)):
+        grads = {n: g.to(d) for n, g in g_cpu.items()}
+        _, states[d], _ = opt.apply_updates(p, grads,
+                                            opt.init_opt_state(p, ocfg), ocfg)
+    for name in p_cpu:
+        assert _rel_err(p_card[name], p_cpu[name]) <= 1e-6, name
+        for k in ("m", "v"):
+            assert _rel_err(states[dev]["mu"][name][k],
+                            states["cpu"]["mu"][name][k]) <= 1e-6, (name, k)
+
+
+def test_train_resume_on_card_equals_straight_run(dev, tmp_path):
+    """On the card, under deterministic algorithms: 4 steps with a
+    checkpoint, then `--resume` to 6, leave the same parameters as 6
+    straight steps, bit for bit (starcoder2 smoke, bf16)."""
+    from repro_torch.launch import train as train_mod
+
+    args = ["--arch", "starcoder2-7b", "--smoke", "--device", "cuda",
+            "--batch", "2", "--seq", "32", "--ckpt-every", "2"]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ck = str(tmp_path / "ck")
+        train_mod.run(train_mod.parse_args(
+            args + ["--steps", "4", "--ckpt-dir", ck]), log=lambda s: None)
+        resumed, _ = train_mod.run(train_mod.parse_args(
+            args + ["--steps", "6", "--ckpt-dir", ck, "--resume"]),
+            log=lambda s: None)
+        straight, _ = train_mod.run(train_mod.parse_args(
+            args + ["--steps", "6"]), log=lambda s: None)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for (name, a), (_, b) in zip(resumed.state_dict().items(),
+                                 straight.state_dict().items()):
+        assert torch.equal(a, b), name
 
 
 def _wide_index(dev, n=4096, d=2304, k=10, L=4, c=64, seed=0):

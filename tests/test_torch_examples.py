@@ -7,7 +7,9 @@ package's draws: its hyperplanes (drawn as the scripts draw them) and,
 for retrieval_serve, its gemma2 smoke weights through
 `repro_torch.convert.model_from`.  The one field left out is
 retrieval_serve's p99 latency, a host time.  Both reference scripts run
-here in-process, loaded from their files.
+here in-process, loaded from their files.  `examples/torch_train_lm.py`
+trains, stops and resumes from its checkpoint, as `examples/train_lm.py`
+does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro.data import osn as josn
 from repro.models import model as JM
 from repro_torch import convert
 from repro_torch.configs import get_config
+from torch_train_cases import one_torch_thread  # noqa: F401
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
@@ -89,7 +92,28 @@ def test_retrieval_serve_prints_the_reference_lines():
     assert out["match"] / out["total"] > 0.5
 
 
-@pytest.mark.parametrize("name", ["torch_quickstart", "torch_retrieval_serve"])
+def test_train_lm_resumes_from_its_checkpoint(one_torch_thread):
+    """`examples/torch_train_lm.py` at 50 steps: phase 1 trains 25 steps
+    and writes step 25, phase 2 prints the training CLI's resume line, goes on
+    from step 25 to 50 and ends with a finite, lower xent."""
+    lines = []
+    out = load("torch_train_lm").run(device="cpu", steps=50,
+                                     log=lines.append)
+    assert lines[0] == ("=== phase 1: steps 0..25 (then simulated "
+                        "preemption) ===")
+    i = lines.index("=== phase 2: resume from checkpoint to 50 ===")
+    assert lines[i + 1].startswith("[resume] restoring ")
+    assert lines[i + 1].endswith("step_00000025 (step 25)")
+    assert not any(s.startswith("[step     0]") for s in lines[i:])
+    xents = [float(s.split("xent=")[1].split()[0]) for s in lines
+             if s.startswith("[step")]
+    assert all(np.isfinite(xents)) and xents[-1] < xents[0]
+    assert int(out["opt_state"]["count"]) == 50
+    assert lines[-1] == "[done]"
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_retrieval_serve",
+                                  "torch_train_lm"])
 def test_examples_refuse_to_drop_to_the_cpu_unasked(name):
     """With no card and no `--device`, an example raises rather than run
     on the CPU."""

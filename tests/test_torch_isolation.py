@@ -41,9 +41,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     # failure_churn, serve_retrieval and serve (LM) CLIs, obs + flight,
     # registry and trace, data + osn, convert, serve + control, frontend,
     # lifecycle, loadgen, qcache, telemetry and writer, models + config,
-    # layers, model, moe, ssm and xlstm, configs + shapes and the ten
-    # arch files
-    assert int(n) >= 66
+    # layers, model, moe, ssm, unroll and xlstm, configs + shapes and the
+    # ten arch files, train + optimizer and train_step, data.tokens,
+    # checkpoint + checkpoint, launch.train
+    assert int(n) >= 73
     assert lm.strip() == str(
         ["repro_torch.configs"]
         + [f"repro_torch.configs.{m}" for m in (
@@ -54,7 +55,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         + ["repro_torch.models", "repro_torch.models.config",
            "repro_torch.models.layers", "repro_torch.models.model",
            "repro_torch.models.moe", "repro_torch.models.ssm",
-           "repro_torch.models.xlstm"])
+           "repro_torch.models.unroll", "repro_torch.models.xlstm"])
     assert serve.strip() == str([
         "repro_torch.launch.serve", "repro_torch.launch.serve_retrieval",
         "repro_torch.serve", "repro_torch.serve.control",
@@ -160,6 +161,47 @@ def test_examples_autotune_and_controller_import_without_jax():
     for path in examples + [
             os.path.join(SRC, "repro_torch", "kernels", "autotune.py"),
             os.path.join(SRC, "repro_torch", "serve", "control.py")]:
+        with open(path) as f:
+            for line in f:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]):
+                    assert words[1].split(".")[0] not in ("jax", "repro"), \
+                        (path, line)
+
+
+TRAIN_PROBE = textwrap.dedent("""
+    import importlib, importlib.util, sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    for name in NAMES:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("example", EXAMPLE)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    leaked = sorted(n for n in sys.modules
+                    if n == "repro" or n.startswith("repro."))
+    print(leaked)
+""")
+
+
+def test_training_modules_and_example_import_without_jax():
+    """The training stack (`models/unroll.py`, `train/optimizer.py`,
+    `train/train_step.py`, `data/tokens.py`, `checkpoint/checkpoint.py`,
+    `launch/train.py`) and `examples/torch_train_lm.py` load with jax
+    unimportable and pull in nothing of `repro`; none of their sources
+    names jax or the JAX package in an import."""
+    names = ["repro_torch.models.unroll", "repro_torch.train.optimizer",
+             "repro_torch.train.train_step", "repro_torch.data.tokens",
+             "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train"]
+    example = os.path.join(os.path.dirname(SRC), "examples",
+                           "torch_train_lm.py")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"NAMES = {names!r}\nEXAMPLE = {example!r}\n" + TRAIN_PROBE],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for path in [example] + [os.path.join(SRC, *n.split(".")) + ".py"
+                             for n in names]:
         with open(path) as f:
             for line in f:
                 words = line.split()

@@ -165,3 +165,93 @@ def test_capacity_is_the_references():
     assert moe.capacity(cfg, 8) == 4
     assert moe.capacity(cfg, 8 * 512) == 576
     assert moe.capacity(get_config("llama4-maverick-400b-a17b"), 4) == 4
+
+
+def _moe_loss(y, aux):
+    """`tests/test_moe.py::test_moe_grads_flow`'s loss."""
+    return (y ** 2).sum() + 0.01 * aux.load_balance_loss
+
+
+def test_moe_grads_flow():
+    """`tests/test_moe.py::test_moe_grads_flow` on the port: jamba's
+    layer at a capacity factor of 8; every gradient is finite, and the
+    router and w_gate get nonzero ones."""
+    tc = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True),
+                             moe_capacity_factor=8.0)
+    m = moe.Moe(tc)
+    m.reset_parameters(torch.Generator().manual_seed(1))
+    m.requires_grad_(True)
+    x = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (2, 8, tc.d_model)) * 0.3).astype(np.float32))
+    names, params = zip(*m.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(_moe_loss(*moe.moe(m, x)),
+                                                params)))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["router"].norm()) > 0
+    assert float(grads["w_gate"].float().norm()) > 0
+
+
+@pytest.mark.parametrize("cf", [0.5, 16.0])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_grads_equal_reference(arch, cf):
+    """Every parameter's gradient of `_moe_loss` and the input's equal
+    JAX's `jax.grad` of the same loss (f32), within 1e-4 of each leaf's
+    largest magnitude, at a factor of 0.5 with the same pairs dropped;
+    the router's gradient of the aux losses alone likewise."""
+    jc, p, m = pair(arch, cf=cf)
+    jx, tx = x_of(jc)
+
+    def jloss(p, x):
+        y, aux = jmoe.moe(p, x, jc)
+        return jnp.sum(y ** 2) + 0.01 * aux.load_balance_loss
+
+    def aux_loss(aux):
+        return 0.01 * aux.load_balance_loss + 1e-3 * aux.router_z_loss
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(p, jx)
+    jr = jax.grad(lambda p: aux_loss(jmoe.moe(p, jx, jc)[1]))(p)["router"]
+    m.requires_grad_(True)
+    tx.requires_grad_(True)
+    names, params = zip(*m.named_parameters())
+    got = torch.autograd.grad(_moe_loss(*moe.moe(m, tx)), params + (tx,))
+    want = {}
+    for name in names:
+        leaf = jg
+        for part in name.split("."):
+            leaf = leaf[part]
+        want[name] = np.asarray(leaf, np.float32)
+    want["x"] = np.asarray(jgx)
+    top = max(np.abs(w).max() for w in want.values())
+    for name, g in zip(names + ("x",), got):
+        w = want[name]
+        # a leaf below 1e-4 of the layer's largest gradient is a zero of
+        # exact arithmetic: with top-1 routing (llama4) the renormalised
+        # weight w / w is 1 and the router's gradient through it is the
+        # rounding residue of both libraries, held within 1e-6 of the
+        # layer's largest gradient
+        bound = (1e-4 * np.abs(w).max() if np.abs(w).max() >= 1e-4 * top
+                 else 1e-6 * top)
+        assert max_err(w, g) <= bound, name
+    # the router's gradient through the aux losses alone
+    r, = torch.autograd.grad(aux_loss(moe.moe(m, tx)[1]), (m.router,))
+    assert max_err(jr, r) <= 1e-4 * np.abs(np.asarray(jr)).max()
+
+
+def test_expert_blocks_keep_the_forward(monkeypatch):
+    """The expert products, a block of experts at a time and then
+    concatenated, equal the same products written block by block into
+    one buffer, bit for bit, with one block and with several."""
+    jc, p, m = pair("deepseek-moe-16b")
+    e, d, f = m.w_gate.shape
+    xe = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (e, 8, d)).astype(np.float32))
+    for block_bytes in (moe.EXPERT_BLOCK_BYTES, 3 * d * f * 4):
+        monkeypatch.setattr(moe, "EXPERT_BLOCK_BYTES", block_bytes)
+        step = max(1, block_bytes // (d * f * 4))
+        want = torch.empty_like(xe)
+        for e0 in range(0, e, step):
+            sl = slice(e0, e0 + step)
+            h = torch.nn.functional.silu(torch.bmm(xe[sl], m.w_gate[sl])) \
+                * torch.bmm(xe[sl], m.w_up[sl])
+            torch.bmm(h, m.w_down[sl], out=want[sl])
+        assert torch.equal(moe._expert_compute(m, xe), want)
