@@ -237,10 +237,11 @@ failure:
      the share reached; the optimizer's device and host ms a step; peak
      bytes beside the state's; a 7th step traced with torch.profiler and
      its host syncs counted; fails on a non-finite xent or unless the
-     last xent is below the first); train_gemma2_int8 (2 steps with
-     int8 state, its bytes beside fp32's; then one checkpoint of the
-     int8 tree, half the fp32 tree's bytes: bytes, save, verify and
-     restore ms, the restored tree equal to the saved one);
+     last xent is below the first; then one checkpoint of the fp32
+     tree: bytes, save, verify and restore ms, the restored tree equal
+     to the saved one); train_gemma2_int8 (2 steps with int8 state,
+     its bytes beside fp32's; then its checkpoint, which phase 17
+     restores);
      train_check (f32 copies of gemma2-2b, deepseek-moe-16b dropless,
      jamba-v0.1-52b with its period cut to its first two layers, and
      xlstm-1.3b, each at full width cut to 2 layers, batch 2 x 256: one
@@ -255,6 +256,21 @@ failure:
      script's top sets `CUBLAS_WORKSPACE_CONFIG` for it);
      train_example (`examples/torch_train_lm.py` on the card at smoke
      size, its resume line);
+ 17. [train_mesh] (after phase 16, at NCCL world 1: one rank a card;
+     no kernel of the six, checked): restore_check (phase 16's int8
+     checkpoint restored with `restore(shardings=)` onto the one-rank
+     LM mesh equals the saved tree); train_mesh (gemma2-2b whole, bf16,
+     4 x 4096, 2 steps of `launch.train.run --mesh-data 1` through the
+     named device mesh and ZeRO-3 placement: step ms and peak beside
+     phase 16's, step 0's xent equal to phase 16's bit for bit,
+     grad_norm and step 1's xent within 1e-5); compress_check
+     (`compressed_psum` over that step's 2.61 B gradients equals the
+     plain quantize -> dequantize of g + e bit for bit, the error g32 -
+     deq; wire bytes against f32's, device ms); pipeline_check (one
+     stage, M = 2, on an f32 2-layer cut: within 2e-4 of the plain
+     forward, gradient cosine > 0.999); serve_mesh (`launch.serve
+     --mesh-data 1`, gemma2-2b whole, 8 x 64 + 8, tokens equal the
+     one-device `generate`'s);
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -519,9 +535,11 @@ def train_flops(cfg, b: int, s: int) -> tuple[dict, dict]:
     return need, extra
 
 
-def train_phase(torch, dev, smi: str, seed: int) -> None:
+def train_phase(torch, dev, smi: str, seed: int) -> dict:
     """Phase 16: training on the card (DESIGN.md Sec. 6).  No kernel of
-    the six is on this path: the LM stack's products are torch ops."""
+    the six is on this path: the LM stack's products are torch ops.
+    Returns what phase 17 compares with: train_gemma2's steps and peak,
+    and train_gemma2_int8's model, state and checkpoint."""
     import shutil
 
     sys.path.insert(0, os.path.join(ROOT, "examples"))
@@ -665,6 +683,7 @@ def train_phase(torch, dev, smi: str, seed: int) -> None:
         peak = torch.cuda.max_memory_allocated()
         ms = [m for m, _ in steps]
         med = float(np.median(ms[1:]))
+        readings = {"steps": steps, "peak": peak, "median_ms": med}
         xents = [m["xent"] for _, m in steps]
         opt_host = [h for h, _ in opt_times[1:]]
         opt_dev = [e[0].elapsed_time(e[1]) for _, e in opt_times[1:]]
@@ -725,6 +744,18 @@ def train_phase(torch, dev, smi: str, seed: int) -> None:
             f"{steps[0][0]:.1f}); int8 state {s8} bytes beside fp32's "
             f"{s_bytes} ({s8 / s_bytes:.3f}); peak device bytes "
             f"{torch.cuda.max_memory_allocated()} ({smi})")
+        # the int8 tree's checkpoint, which phase 17 restores onto the
+        # one-rank mesh (it removes the directory)
+        int8_dir = tempfile.mkdtemp(prefix="train_ckpt_int8_")
+        t0 = time.perf_counter()
+        int8_path = ckpt.save(int8_dir, 2, {"params": model.state_dict(),
+                                            "opt": state},
+                              extra={"arch": "gemma2-2b"})
+        log(f"[train] train_gemma2_int8 checkpoint for phase 17: "
+            f"{os.path.getsize(os.path.join(int8_path, 'arrays.npz'))} bytes,"
+            f" save {(time.perf_counter() - t0) * 1e3:.0f} ms")
+        readings["int8"] = dict(model=model, state=state, ocfg=ocfg8,
+                                path=int8_path, dir=int8_dir)
         del model, state
 
     def rel_err(card_t, cpu_t) -> float:
@@ -939,6 +970,237 @@ def train_phase(torch, dev, smi: str, seed: int) -> None:
         if not resume or not xe[-1] < xe[0]:
             raise AssertionError("train_example: no resume or no progress")
     log(f"[train] phase 16 in {time.perf_counter() - phase_wall:.1f} s")
+    return readings
+
+
+def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
+    """Phase 17 [train_mesh]: training on several devices, at NCCL world
+    1 (one rank a card; the worlds of 2, 4 and 8 run in gloo ranks on
+    the CPU in tests/test_torch_train_dist.py).  No kernel of the six
+    is on this path.  restore_check (phase 16's int8 checkpoint restored
+    with shardings onto the one-rank mesh), train_mesh (gemma2-2b whole,
+    2 steps of `launch.train.run --mesh-data 1` through the named device
+    mesh and ZeRO-3 placement, against phase 16's steps),
+    compress_check (`compressed_psum` over that step's gradients),
+    pipeline_check (one stage, M = 2, on an f32 2-layer cut) and
+    serve_mesh (`launch.serve --mesh-data 1`)."""
+    import shutil
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import init_process_mesh, make_lm_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.config import count_params
+    from repro_torch.train import compression as comp
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.pipeline import pipeline_forward
+
+    wall = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    init_process_mesh(dev)
+    mesh = make_lm_mesh(1, 1, device=dev)
+    log(f"[train_mesh] process group: backend {tdist.get_backend()}, world "
+        f"{tdist.get_world_size()}; LM mesh {mesh.shape} ({smi})")
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # restore_check: phase 16's int8 tree, restored with the one-rank
+    # mesh's shardings, equals the saved tree
+    t0 = time.perf_counter()
+    i8 = p16.pop("int8")
+    try:
+        zero = ts.Zero3(i8["model"], mesh)
+        tmpl, shard = zero.checkpoint_template(i8["ocfg"])
+        back = ckpt.restore(i8["path"], tmpl, device=dev, shardings=shard)
+        saved = {"params": i8["model"].state_dict(), "opt": i8["state"]}
+        pairs = list(zip(ckpt._leaves(saved), ckpt._leaves(back)))
+        same = all(a_path == b_path and torch.equal(
+            a, b.to_local() if hasattr(b, "to_local") else b)
+            for (a_path, a), (b_path, b) in pairs)
+        kinds = sorted({type(b).__name__ for _, (_, b) in pairs})
+        log(f"[train_mesh] restore_check: phase 16's int8 checkpoint "
+            f"({len(pairs)} leaves) restored with shardings onto the "
+            f"one-rank mesh ({kinds}) in {sync_s(t0) * 1e3:.0f} ms (its "
+            f"verify included): {'equals' if same else 'DIFFERS FROM'} "
+            f"the saved tree")
+        if not same:
+            raise AssertionError("restore_check: restored != saved")
+    finally:
+        shutil.rmtree(i8["dir"], ignore_errors=True)
+        del i8, zero
+        back = saved = pairs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # train_mesh: 2 steps through the mesh path, each timed, the last
+    # step's gradients kept for compress_check
+    gemma = get_config("gemma2-2b")
+    B, S, CHUNK = TRAIN_SHAPE
+    times, kept = [], {}
+    real_make, real_apply = ts.make_sharded_train_step, opt.apply_updates
+
+    def timed_make(*a, **kw):
+        inner = real_make(*a, **kw)
+
+        def step(model, state, rows):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = inner(model, state, rows)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append((ev[0].elapsed_time(ev[1]),
+                          {k: float(v) for k, v in out[1].items()}))
+            return out
+        return step
+
+    def keep_grads(params, grads, *a, **kw):
+        if len(times) == 1:   # the second step's
+            kept["grads"] = grads
+        return real_apply(params, grads, *a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts.make_sharded_train_step, opt.apply_updates = timed_make, keep_grads
+    try:
+        model, _ = train_mod.run(train_mod.parse_args([
+            "--arch", "gemma2-2b", "--device", dev.type, "--mesh-data", "1",
+            "--steps", "2", "--batch", str(B), "--seq", str(S), "--lr",
+            str(TRAIN_LR), "--warmup", "2", "--log-every", "1", "--seed",
+            str(seed)]), cfg=gemma, log=lambda s: None)
+    finally:
+        ts.make_sharded_train_step, opt.apply_updates = real_make, real_apply
+    peak = torch.cuda.max_memory_allocated()
+    run_s = sync_s(t0)
+    (ms0, m0), (ms1, m1) = times
+    (p_ms0, p_m0), (p_ms1, p_m1) = p16["steps"][:2]
+    e_gn = abs(m0["grad_norm"] - p_m0["grad_norm"]) / p_m0["grad_norm"]
+    e_x1 = abs(m1["xent"] - p_m1["xent"]) / p_m1["xent"]
+    log(f"[train_mesh] train_mesh gemma2-2b whole, bf16, {B} x {S}, "
+        f"launch.train --mesh-data 1 (named device mesh, ZeRO-3 placement; "
+        f"{run_s:.1f} s with the init): step ms {ms0:.1f}, {ms1:.1f} beside "
+        f"phase 16's {p_ms0:.1f}, {p_ms1:.1f} (its median "
+        f"{p16['median_ms']:.1f}); peak device bytes {peak} beside phase "
+        f"16's {p16['peak']}; step 0 xent {m0['xent']!r} vs {p_m0['xent']!r}"
+        f" ({'equal' if m0['xent'] == p_m0['xent'] else 'DIFFERENT'}); "
+        f"grad_norm {e_gn:.3g} and step 1 xent {e_x1:.3g} relative apart "
+        f"(gate 1e-5; the embedding backward adds with atomics) ({smi})")
+    if m0["xent"] != p_m0["xent"] or e_gn > 1e-5 or e_x1 > 1e-5:
+        raise AssertionError(f"train_mesh: step 0 xent {m0['xent']} vs "
+                             f"{p_m0['xent']}, grad_norm {e_gn}, step 1 "
+                             f"xent {e_x1}")
+    del model
+
+    # compress_check: compressed_psum at world 1 over that gradient tree
+    grads = kept.pop("grads")
+    n_par = sum(g.numel() for g in grads.values())
+    stats = {}
+    err0 = comp.init_error_state(grads)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    red, err = comp.compressed_psum(grads, err0, stats=stats)
+    ev[1].record()
+    torch.cuda.synchronize()
+    c_ms = ev[0].elapsed_time(ev[1])
+    same_red = same_err = True
+    for n, g in grads.items():
+        g32 = g.float() + err0[n]
+        deq = opt.dequantize_blockwise(*opt.quantize_blockwise(g32, 256),
+                                       g.shape)
+        same_red &= torch.equal(red[n], deq)
+        same_err &= torch.equal(err[n], g32 - deq)
+    log(f"[train_mesh] compress_check: compressed_psum at world 1 over "
+        f"train_mesh's last gradient tree ({n_par} parameters, "
+        f"{len(grads)} leaves) in {c_ms:.1f} device ms; reduced gradients "
+        f"{'equal' if same_red else 'DIFFER FROM'} quantize -> dequantize "
+        f"of g + e bit for bit, error {'equals' if same_err else 'DIFFERS '
+        'FROM'} g32 - deq; wire bytes {stats['wire_bytes']} (int8 codes + "
+        f"f32 scales) against f32's {stats['f32_bytes']} "
+        f"({stats['wire_bytes'] / stats['f32_bytes']:.4f})")
+    if not (same_red and same_err and n_par == count_params(gemma)):
+        raise AssertionError("compress_check")
+    del grads, red, err, err0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # pipeline_check: one stage, M = 2, on train_check's f32 2-layer cut
+    cut = dataclasses.replace(gemma, dtype="float32", num_layers=2,
+                              scan_period=min(gemma.scan_period, 2))
+    model = lm.init_model(cut, seed, device=dev)
+    params = ts.parameters(model)
+    batch = tok.make_batch(cut, tok.DataConfig(seed=seed), 0, 2, 256,
+                           device=dev)
+    x = lm._embed_inputs(model, batch).detach()
+    pos = torch.arange(x.shape[1], dtype=torch.int32,
+                       device=dev)[None].expand(x.shape[:2])
+    names = [n for n in params if n.startswith("blocks.")]
+    outs = {}
+    for key in ("pipe", "plain"):
+        t0 = time.perf_counter()
+        if key == "pipe":
+            y = pipeline_forward(cut, None, model.blocks, x, pos, 2)
+        else:
+            y = x
+            for blk in model.blocks:
+                y, _, _ = blk(y, pos)
+        g = torch.autograd.grad(torch.sum(y ** 2), [params[n] for n in names])
+        outs[key] = (y.detach(), g, sync_s(t0))
+    (yp, gp, tp), (yr, gr, tr) = outs["pipe"], outs["plain"]
+    y_err = float((yp - yr).abs().max())
+    a = torch.cat([t.ravel() for t in gp])
+    b = torch.cat([t.ravel() for t in gr])
+    cos = float(a @ b / (a.norm() * b.norm()))
+    log(f"[train_mesh] pipeline_check: pipeline_forward one stage, M = 2, "
+        f"gemma2-2b f32 cut to 2 layers, 2 x 256: output {y_err:.3g} from "
+        f"the plain forward (gate 2e-4), gradient cosine {cos:.6f} (gate > "
+        f"0.999); {tp * 1e3:.0f} ms forward + backward against plain "
+        f"{tr * 1e3:.0f} ms")
+    if y_err > 2e-4 or cos <= 0.999:
+        raise AssertionError(f"pipeline_check: {y_err}, cosine {cos}")
+    del model, params, outs, a, b, gp, gr, yp, yr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve_mesh: launch.serve --mesh-data 1 against the one-device
+    # generate on the same weights
+    model = lm.init_model(gemma, seed, device=dev)
+    argv = ["--arch", "gemma2-2b", "--device", dev.type, "--batch", "8",
+            "--prompt-len", "64", "--gen", "8", "--mesh-data", "1",
+            "--seed", str(seed)]
+    t0 = time.perf_counter()
+    got = serve_mod.run(serve_mod.parse_args(argv), model=model,
+                        log=lambda s: None)
+    mesh_s = sync_s(t0)
+    args = serve_mod.parse_args(argv)
+    batch = serve_mod.make_batch(gemma, args.batch, args.prompt_len,
+                                 args.seed, dev)
+    t0 = time.perf_counter()
+    want = serve_mod.generate(model, batch, steps=args.gen,
+                              max_len=args.prompt_len + args.gen + 8,
+                              seed=args.seed).cpu().numpy()
+    one_s = sync_s(t0)
+    same = np.array_equal(got, want)
+    log(f"[train_mesh] serve_mesh: launch.serve --mesh-data 1, gemma2-2b "
+        f"whole, 8 x 64 + 8: tokens {'equal' if same else 'DIFFER FROM'} "
+        f"the one-device generate's; {mesh_s * 1e3:.0f} ms against "
+        f"{one_s * 1e3:.0f} ms")
+    if not same:
+        raise AssertionError("serve_mesh: tokens differ")
+    del model
+    tdist.destroy_process_group()
+    log(f"[train_mesh] phase 17 in {time.perf_counter() - wall:.1f} s")
 
 
 def main() -> int:
@@ -1598,6 +1860,7 @@ def main() -> int:
         contains exactly; fused_query's plain version runs in row
         chunks."""
         for (name, shapes, _), (a, kw) in recorded_inputs(fn, names).items():
+            lib_ms = None
             if name == "fused_query":
                 err, ties = hold_fused(a, kw, f"fused_query on {path}")
                 k_ms = cuda_ms(torch, lambda: ops.fused_query(*a, **kw), 5)
@@ -1625,6 +1888,9 @@ def main() -> int:
                 k_ms = cuda_ms(torch, lambda: ops.simhash(*a, **kw), 5)
                 p_ms = cuda_ms(torch, lambda: sh_mod.simhash_plain(*a, **kw),
                                5)
+                # the library's product of x by H^T alone, as phase 4's
+                h_t = a[1].reshape(-1, a[1].shape[-1]).t().contiguous()
+                lib_ms = cuda_ms(torch, lambda: torch.matmul(a[0], h_t), 5)
             elif name == "bucket_topk":
                 qa, cand, valid, m = a
                 ks, ki = ops.bucket_topk(qa, cand, valid, m)
@@ -1650,11 +1916,13 @@ def main() -> int:
             k.setdefault("path_shapes", []).append(dict(
                 path=path, shapes=[list(s) for s in shapes],
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by))
+                bound_by=b_by, library_ms=lib_ms))
             log(f"[kernel] {name} at {path} {list(shapes)}: equal to plain "
                 f"(max score err {err:.3g}, near-tie id swaps {ties}); "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms"
-                + ("" if b_ms is None else f", bound {b_ms:.4f} ms ({b_by})"))
+                + ("" if b_ms is None else f", bound {b_ms:.4f} ms ({b_by})")
+                + ("" if lib_ms is None else
+                   f", torch.matmul x H^T {lib_ms:.4f} ms"))
 
     # -- 5-9. the main path's paths, each with launch counts of its own -----
     by_path = {}
@@ -3863,11 +4131,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launches()
-    train_phase(torch, dev, smi, args.seed)
+    p16 = train_phase(torch, dev, smi, args.seed)
     if any(ops.LAUNCHES.values()):
         raise AssertionError(f"train: launched an index kernel "
                              f"{dict(ops.LAUNCHES)}")
     log(f"[launches] train (phase 16, not a kernel path): "
+        f"{dict(ops.LAUNCHES)}")
+
+    # -- 17. [train_mesh]: training on several devices, at world 1 -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    train_mesh_phase(torch, dev, smi, args.seed, p16)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"train_mesh: launched an index kernel "
+                             f"{dict(ops.LAUNCHES)}")
+    log(f"[launches] train_mesh (phase 17, not a kernel path): "
         f"{dict(ops.LAUNCHES)}")
 
     # -- 13. kernels line ---------------------------------------------------

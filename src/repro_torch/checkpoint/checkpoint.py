@@ -14,12 +14,19 @@ the template's dtype on restore.  Writes are atomic: the step goes to a
 re-pointed (`os.replace`), so a crash mid-write never corrupts the
 restore path.  `keep_last` bounds the steps kept.
 
-The reference's elastic restore onto another mesh (`shardings=`) is not
-ported yet: `restore` places every leaf on one device.
+Sharded trees: under a process group, a leaf may be a DTensor (a rank's
+shard of a parameter or of its state); `save` gathers each such leaf
+in turn, on every rank, rank 0 writes the whole array in the same
+layout, and the other ranks wait for it.  Elastic restore, as the
+reference's: `restore(..., shardings=)` gives each leaf back as this
+rank's shard under the placements of the *current* mesh, whatever
+mesh wrote it, read from the memory-mapped file (only the shard's
+bytes are read).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -30,6 +37,9 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models import sharding as sh
 
 
 def _leaves(tree, prefix=""):
@@ -42,8 +52,15 @@ def _leaves(tree, prefix=""):
             yield path, val
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor, on its device (a DTensor gathered: collective,
+    every rank calls it)."""
     t = t.detach()
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A whole tensor's array on the host (bf16 widened to f32)."""
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
@@ -82,40 +99,54 @@ class _HashingWriter(io.RawIOBase):
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
          keep_last: int = 3) -> str:
-    """Write `tree` as step `step`; returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write `tree` as step `step`; returns the step's directory.  Under
+    a process group every rank calls it (DTensor leaves are gathered
+    leaf by leaf), rank 0 writes, and all return once the step is
+    durable."""
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     names = []
     npz_path = os.path.join(tmp, "arrays.npz")
     # `np.savez`'s archive, written one leaf at a time so that only one
     # leaf is on the host at once, and hashed as it is written
-    with open(npz_path, "wb") as raw:
-        out = _HashingWriter(raw)
-        with zipfile.ZipFile(out, mode="w", compression=zipfile.ZIP_STORED,
-                             allowZip64=True) as zf:
-            for path, t in _leaves(tree):
-                names.append(path)
+    with contextlib.ExitStack() as stack:
+        zf = None
+        if writer:
+            out = _HashingWriter(stack.enter_context(open(npz_path, "wb")))
+            zf = stack.enter_context(zipfile.ZipFile(
+                out, mode="w", compression=zipfile.ZIP_STORED,
+                allowZip64=True))
+        for path, t in _leaves(tree):
+            names.append(path)
+            t = _whole(t)
+            if zf is not None:   # only the writer copies it to the host
                 with zf.open(path + ".npy", "w", force_zip64=True) as f:
                     np.lib.format.write_array(f, _host(t),
                                               allow_pickle=False)
-    with open(os.path.join(tmp, "CHECKSUM"), "w") as f:
-        f.write(out.sha256.hexdigest())
-    meta = {"step": step, "time": time.time(), "leaves": sorted(names),
-            **(extra or {})}
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    with open(os.path.join(ckpt_dir, "latest.tmp"), "w") as f:
-        f.write(os.path.basename(final))
-    os.replace(os.path.join(ckpt_dir, "latest.tmp"),
-               os.path.join(ckpt_dir, "latest"))
-    _gc(ckpt_dir, keep_last)
+            del t
+    if writer:
+        with open(os.path.join(tmp, "CHECKSUM"), "w") as f:
+            f.write(out.sha256.hexdigest())
+        meta = {"step": step, "time": time.time(), "leaves": sorted(names),
+                **(extra or {})}
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        with open(os.path.join(ckpt_dir, "latest.tmp"), "w") as f:
+            f.write(os.path.basename(final))
+        os.replace(os.path.join(ckpt_dir, "latest.tmp"),
+                   os.path.join(ckpt_dir, "latest"))
+        _gc(ckpt_dir, keep_last)
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -142,35 +173,49 @@ def verify(step_dir: str) -> bool:
     return want == _sha256(os.path.join(step_dir, "arrays.npz"))
 
 
-def restore(step_dir: str, template, device=None):
-    """A tree like `template` (nested dicts of tensors) holding the
-    step's arrays, each in its template leaf's dtype, on `device` (by
-    default each template leaf's device).  Raises IOError on a checksum
-    mismatch and ValueError on a shape mismatch."""
+def restore(step_dir: str, template, device=None, shardings=None):
+    """A tree like `template` (nested dicts of tensors; only their
+    shapes and dtypes are read) holding the step's arrays, each in its
+    template leaf's dtype, on `device` (by default each template leaf's
+    device).  `shardings`: a tree of the same structure whose leaves are
+    `models.sharding.NamedSharding`s (or None): such a leaf comes back
+    as a DTensor holding this rank's shard under the sharding's
+    placements, on the mesh's device unless `device` says otherwise.
+    Raises IOError on a checksum mismatch and ValueError on a shape
+    mismatch."""
     if not verify(step_dir):
         raise IOError(f"checksum mismatch in {step_dir}")
     data = _stored_arrays(os.path.join(step_dir, "arrays.npz"))
 
-    def build(tree, prefix=""):
+    def build(tree, shard_tree, prefix=""):
         out = {}
         for key, leaf in tree.items():
             path = f"{prefix}{key}"
+            shard = None if shard_tree is None else shard_tree[key]
             if isinstance(leaf, dict):
-                out[key] = build(leaf, path + "/")
+                out[key] = build(leaf, shard, path + "/")
                 continue
             arr = data(path)
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {path}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
+            if shard is not None:
+                arr = arr[sh.local_slices(shard.mesh, shard.spec,
+                                          arr.shape)]
             if not arr.flags.c_contiguous:
                 arr = np.ascontiguousarray(arr)
-            dev = leaf.device if device is None else torch.device(device)
+            if device is not None:
+                dev = torch.device(device)
+            else:
+                dev = leaf.device if shard is None else shard.mesh.device
             # a copy: the leaf never aliases the file's mapping
-            out[key] = torch.from_numpy(arr).to(dev, copy=True).to(
-                leaf.dtype)
+            t = torch.from_numpy(arr).to(dev, copy=True).to(leaf.dtype)
+            if shard is not None:
+                t = sh.as_dtensor(t, shard, tuple(leaf.shape))
+            out[key] = t
         return out
 
-    return build(template)
+    return build(template, shardings)
 
 
 def _stored_arrays(npz_path: str):

@@ -13,6 +13,7 @@ the process groups take its place.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 
 import torch
@@ -185,3 +186,106 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 def batch_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+# -- the LM side's named mesh -------------------------------------------------
+
+
+class NamedMesh:
+    """`pod` x `data` x `model` processes as a `DeviceMesh` with named
+    dims, for the sharding rules (`models.sharding`): `shape` (axis ->
+    size), `coordinate` (axis -> this rank's index), `device_mesh`,
+    `device`, and `group(axes)`, the process group over a tuple of axes
+    in mesh order."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh, self.device = device_mesh, device
+        names = device_mesh.mesh_dim_names
+        self.shape = dict(zip(names, device_mesh.shape))
+        self.coordinate = dict(zip(names, device_mesh.get_coordinate()))
+        # the group of every set of axes, made now: every rank makes
+        # every group, in one order (`dist.new_group` is collective)
+        self._groups = {
+            axes: self._make_group(axes)
+            for r in range(1, len(names) + 1)
+            for axes in itertools.combinations(names, r)}
+
+    def _make_group(self, axes: tuple):
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if all(self.shape[a] == 1 for a in self.shape if a not in axes):
+            return dist.group.WORLD
+        # one group for each coordinate off `axes`: its ranks row-major
+        names = list(self.shape)
+        on = [names.index(a) for a in axes]
+        off = [i for i in range(len(names)) if i not in on]
+        grid = self.device_mesh.mesh.permute(*off, *on).reshape(
+            -1, self.size(axes))
+        mine = None
+        for ranks in grid.tolist():
+            g = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                mine = g
+        return mine
+
+    def group(self, axes):
+        """The process group over `axes` (a name, or names in mesh
+        order)."""
+        return self._groups[(axes,) if isinstance(axes, str)
+                            else tuple(axes)]
+
+    def size(self, axes) -> int:
+        n = 1
+        for a in (axes,) if isinstance(axes, str) else axes:
+            n *= self.shape[a]
+        return n
+
+
+def make_lm_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,
+                 device=None) -> NamedMesh:
+    """The LM side's mesh of (pod,) data x model processes over the
+    initialised process group (`init_process_mesh`: gloo on the CPU,
+    NCCL on a card), whose world must hold exactly that many."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("an LM mesh runs over a process group: call "
+                           "init_process_mesh first, or launch with "
+                           "`torchrun --nproc-per-node N`")
+    names = (("pod",) if pod else ()) + ("data", "model")
+    shape = ((pod,) if pod else ()) + (data, model)
+    n = 1
+    for s in shape:
+        n *= s
+    if _world() != n:
+        raise RuntimeError(f"an LM mesh of {shape} processes needs a world "
+                           f"of {n}, not {_world()}")
+    dev = _rank_device(device)
+    if dist.get_backend() != _backend_of(dev):
+        raise ValueError(f"an LM mesh on {dev} runs over {_backend_of(dev)}, "
+                         f"but the process group's backend is "
+                         f"{dist.get_backend()}")
+    return NamedMesh(init_device_mesh(dev.type, shape,
+                                      mesh_dim_names=names), dev)
+
+
+def cli_mesh(args, log):
+    """The LM CLIs' layout from `--mesh-data` / `--mesh-model` / `--batch`
+    / `--device`: (the `NamedMesh` or None, this process's device, the
+    log to use).  A mesh where `--mesh-data` > 1 or a process group is
+    up (torchrun); then only rank 0 logs, and the batch must split over
+    the data ranks.  The model axis is refused: tensor and expert
+    parallelism are not ported yet."""
+    if args.mesh_model != 1:
+        raise ValueError("--mesh-model must be 1: tensor and expert "
+                         "parallelism over the model axis are not ported "
+                         "yet (ROADMAP 1 item 8e.6)")
+    if args.mesh_data < 1:
+        raise ValueError(f"--mesh-data must be >= 1, not {args.mesh_data}")
+    if args.mesh_data == 1 and not dist.is_initialized():
+        return None, resolve_device(args.device), log
+    mesh = make_lm_mesh(args.mesh_data, args.mesh_model, device=args.device)
+    if args.batch % args.mesh_data:
+        raise ValueError(f"--batch {args.batch} does not split over "
+                         f"--mesh-data {args.mesh_data} ranks")
+    return mesh, mesh.device, log if is_rank0() else (lambda s: None)

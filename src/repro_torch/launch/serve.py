@@ -1,5 +1,5 @@
 """End-to-end LM serving driver: batched prefill, then greedy (or sampled)
-decode, on one device.
+decode, on one device or data-parallel over processes.
 
 The port of `repro.launch.serve`, for every configured architecture
 (`--arch`, one of `configs.ARCH_NAMES`: attention, mamba + attention +
@@ -11,6 +11,14 @@ once, after the last step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --smoke --device cpu --batch 4 --prompt-len 64 --gen 32
+
+`--mesh-data D` serves data-parallel over D processes (under torchrun:
+gloo with `--device cpu`, NCCL on cards): every rank builds the same
+weights and request batch, generates its own rows (`sharding.
+batch_rows`; the batch must divide over D), and the tokens are
+all-gathered, so every rank returns the whole batch; rank 0 prints.
+Greedy tokens equal one rank's.  `--mesh-model` other than 1 is
+refused (ROADMAP 1 item 8e.6).
 """
 
 from __future__ import annotations
@@ -20,9 +28,10 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model as M
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer
 
@@ -94,7 +103,7 @@ def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     return out
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="one of " + ", ".join(ARCH_NAMES))
@@ -108,28 +117,48 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise ValueError("the port serves on one device: --mesh-data and "
-                         "--mesh-model must be 1 until models/sharding.py "
-                         "is ported (ROADMAP 1 item 8e)")
+    if args.mesh_model != 1:
+        mesh_mod.cli_mesh(args, print)   # raises: the model axis
+    return args
 
-    cfg = get_config(args.arch, smoke=args.smoke)
-    dev = resolve_device(args.device)
-    model = M.init_model(cfg, args.seed, device=dev)
+
+def run(args: argparse.Namespace, model: M.Model | None = None,
+        log=print) -> np.ndarray:
+    """Serve one request batch per `args`; `model` replaces the one
+    drawn from `--seed` (its config is then the model's).  Returns the
+    [batch, gen] tokens, the whole batch on every rank."""
+    mesh, dev, log = mesh_mod.cli_mesh(args, log)
+    if model is None:
+        model = M.init_model(get_config(args.arch, smoke=args.smoke),
+                             args.seed, device=dev)
+    cfg = model.cfg
     batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
     max_len = args.prompt_len + args.gen + 8
     tracer = Tracer()
     with tracer.span("lm/generate", cat="lm", batch=args.batch,
                      gen=args.gen) as sp:
-        toks = generate(model, batch, steps=args.gen, max_len=max_len,
-                        seed=args.seed).cpu().numpy()
+        # without a mesh (one device) the rows are the whole batch
+        with sh.use_mesh(mesh):
+            rows = {k: sh.batch_rows(v) for k, v in batch.items()}
+        toks = generate(model, rows, steps=args.gen, max_len=max_len,
+                        seed=args.seed)
+        with sh.use_mesh(mesh):
+            toks = sh.batch_gather(toks).cpu().numpy()
     dt = sp.duration_s
-    print(f"[serve] generated {toks.shape} tokens in {dt:.1f}s "
-          f"({toks.size / dt:.1f} tok/s) on {dev}")
-    print("first sequences:", toks[:2, :16].tolist())
+    log(f"[serve] generated {toks.shape} tokens in {dt:.1f}s "
+        f"({toks.size / dt:.1f} tok/s) on {dev}"
+        + (f", {args.mesh_data} data-parallel ranks" if mesh else ""))
+    log(f"first sequences: {toks[:2, :16].tolist()}")
     if not (np.all(toks >= 0) and np.all(toks < cfg.vocab_size)):
         raise RuntimeError("generated a token outside the vocabulary")
-    print("[done]")
+    log("[done]")
+    return toks
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    with mesh_mod.torchrun_group(args.device):
+        run(args)
 
 
 if __name__ == "__main__":

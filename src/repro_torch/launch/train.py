@@ -1,4 +1,5 @@
-"""End-to-end training driver, on one device.
+"""End-to-end training driver, on one device or data-parallel over
+processes.
 
 The port of `repro.launch.train`:
 
@@ -15,8 +16,21 @@ Fault tolerance, as the reference's:
     batch `step` is bit-identical, and a resumed run's parameters equal
     a straight run's.
 The host reads the loss and the gradient norm only at log steps.
-`--mesh-data` / `--mesh-model` other than 1 are refused until the
-sharding rules are ported.
+
+Parameters and optimizer state are held by `train_step.Zero3`, which
+splits nothing on one device.  `--mesh-data D` trains data-parallel over
+D processes: each rank takes its rows of every global batch, and the
+parameters and optimizer state are stored as the sharding rules place
+them (ZeRO-3 over `data`); checkpoints keep the one-device layout, so
+`--resume` works across a change of D.  Under torchrun (gloo with
+`--device cpu`, NCCL on cards; a process group of its own otherwise):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
+        --smoke --device cpu --mesh-data 2 --steps 4 --batch 4 --seq 32
+
+`--mesh-model` other than 1 (tensor and expert parallelism) is refused:
+ROADMAP 1 item 8e.6.
 """
 
 from __future__ import annotations
@@ -25,11 +39,12 @@ import argparse
 
 import numpy as np
 
-from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data import tokens as data_tokens
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model as M
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer
 from repro_torch.train import optimizer as opt_mod
@@ -58,19 +73,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise ValueError("the port trains on one device: --mesh-data and "
-                         "--mesh-model must be 1 until models/sharding.py "
-                         "is ported (ROADMAP 1 item 8e)")
+    if args.mesh_model != 1:
+        mesh_mod.cli_mesh(args, print)   # raises: the model axis
     return args
 
 
 def run(args: argparse.Namespace, cfg: ModelConfig | None = None,
         log=print):
     """Train per `args` (from `parse_args`); `cfg` replaces the arch's
-    config (e.g. one cut in depth).  Returns (model, optimizer state)."""
+    config (e.g. one cut in depth).  Returns (model, optimizer state).
+    Data-parallel (`--mesh-data` > 1, or any initialised process group)
+    every rank calls it and gets the whole model and state back; rank
+    0 logs."""
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
-    dev = resolve_device(args.device)
+    mesh, dev, log = mesh_mod.cli_mesh(args, log)
     ocfg = opt_mod.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                              decay_steps=args.steps,
                              state_dtype=args.opt_state)
@@ -78,26 +94,27 @@ def run(args: argparse.Namespace, cfg: ModelConfig | None = None,
     dcfg = data_tokens.DataConfig(seed=args.seed)
 
     model = M.init_model(cfg, args.seed, device=dev)
-    opt_state = opt_mod.init_opt_state(dict(model.named_parameters()), ocfg)
+    zero = ts.Zero3(model, mesh)   # mesh None: one device, nothing split
+    opt_state = zero.init_opt_state(ocfg)
+    step_fn = ts.make_sharded_train_step(cfg, ocfg, zero, hp)
     start_step = 0
     if args.resume and args.ckpt_dir:
         latest = ckpt.latest_step_dir(args.ckpt_dir)
         if latest:
             meta = ckpt.load_meta(latest)
             log(f"[resume] restoring {latest} (step {meta['step']})")
-            restored = ckpt.restore(latest, {"params": model.state_dict(),
-                                             "opt": opt_state})
-            model.load_state_dict(restored["params"])
-            opt_state = restored["opt"]
-            del restored
+            tmpl, shard = zero.checkpoint_template(ocfg)
+            opt_state = zero.load(ckpt.restore(latest, tmpl, device=dev,
+                                               shardings=shard))
             start_step = int(meta["step"])
 
-    step_fn = ts.make_train_step(cfg, ocfg, hp)
     tracer = Tracer()
     with tracer.span("train/run", cat="train", arch=args.arch) as run_sp:
         for step in range(start_step, args.steps):
             batch = data_tokens.make_batch(cfg, dcfg, step, args.batch,
                                            args.seq, device=dev)
+            with sh.use_mesh(mesh):
+                batch = {k: sh.batch_rows(v) for k, v in batch.items()}
             opt_state, metrics = step_fn(model, opt_state, batch)
             if step % args.log_every == 0 or step == args.steps - 1:
                 loss = float(metrics["xent"])
@@ -107,18 +124,22 @@ def run(args: argparse.Namespace, cfg: ModelConfig | None = None,
                 if not np.isfinite(loss):
                     raise RuntimeError(f"loss diverged at step {step}")
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                path = ckpt.save(args.ckpt_dir, step + 1,
-                                 {"params": model.state_dict(),
-                                  "opt": opt_state},
+                tree = zero.checkpoint_tree(opt_state, ocfg)
+                path = ckpt.save(args.ckpt_dir, step + 1, tree,
                                  extra={"arch": args.arch,
                                         "data_seed": args.seed})
+                del tree
                 log(f"[ckpt] wrote {path}")
+    zero.gather()
+    opt_state = zero.full_state(opt_state, ocfg)
     log("[done]")
     return model, opt_state
 
 
 def main(argv=None):
-    run(parse_args(argv), log=lambda s: print(s, flush=True))
+    args = parse_args(argv)
+    with mesh_mod.torchrun_group(args.device):
+        run(args, log=lambda s: print(s, flush=True))
 
 
 if __name__ == "__main__":

@@ -55,6 +55,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class RmsNorm(nn.Module):
+    # each parameter's logical axes (the reference's init specs), read
+    # by `model.param_specs`
+    SPECS = {"weight": ("d_model",)}
+
     def __init__(self, d: int, eps: float, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -198,6 +202,14 @@ class Attention(nn.Module):
     wo [H, dh, d], and with `cfg.qkv_bias` (self-attention only) the
     biases bq [H, dh], bk / bv [Hkv, dh]."""
 
+    SPECS = {"wq": ("fsdp", "heads", "head_dim"),
+             "wk": ("fsdp", "kv_heads", "head_dim"),
+             "wv": ("fsdp", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "fsdp"),
+             "bq": ("heads", "head_dim"),
+             "bk": ("kv_heads", "head_dim"),
+             "bv": ("kv_heads", "head_dim")}
+
     def __init__(self, cfg: ModelConfig, *, cross: bool = False,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -303,6 +315,9 @@ class Mlp(nn.Module):
     """swiglu: w_gate, w_up [d, f], w_down [f, d]; gelu (tanh, as
     `jax.nn.gelu`) or relu: w_in [d, f], w_down [f, d].  f is `hidden`,
     by default `cfg.d_ff` (an MoE's shared expert is wider)."""
+
+    SPECS = {"w_gate": ("fsdp", "d_ff"), "w_up": ("fsdp", "d_ff"),
+             "w_in": ("fsdp", "d_ff"), "w_down": ("d_ff", "fsdp")}
 
     def __init__(self, cfg: ModelConfig, hidden: int | None = None, *,
                  device=None, dtype=torch.float32):

@@ -192,6 +192,28 @@ class Model(nn.Module):
         return self.embed.device
 
 
+# the top-level parameters' logical axes (the reference's init_model)
+_TOP_SPECS = {"embed": ("vocab", "fsdp"), "lm_head": ("fsdp", "vocab"),
+              "prefix_proj": ("fsdp", "d_model")}
+
+
+def param_specs(model: Model | ModelConfig) -> dict:
+    """{parameter name: its logical axes}, in `named_parameters()`
+    order: the axes the reference's `init_model` gives each leaf, read
+    from each module's `SPECS`.  The reference's leading `layers` axis
+    (its blocks stack on it; no rule maps it) is left out, because the
+    port's blocks are a ModuleList.  Given a config, the model is built
+    on the meta device: no memory, at any width."""
+    if isinstance(model, ModelConfig):
+        model = Model(model, device="meta")
+    out = {}
+    for mname, mod in model.named_modules():
+        specs = getattr(type(mod), "SPECS", _TOP_SPECS)
+        for pname, _ in mod.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = specs[pname]
+    return {name: out[name] for name, _ in model.named_parameters()}
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
     """A model with random weights drawn from a `torch.Generator` seeded
     with `seed`, on the device, scaled as the reference's init scales

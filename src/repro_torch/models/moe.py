@@ -1,7 +1,10 @@
-"""Mixture-of-Experts layer on torch, on one device.
+"""Mixture-of-Experts layer on torch.
 
-The port of `repro.models.moe` on the reference's one-device path (no
-mesh: every expert is local, data = pod = 1).  Routing: f32 router
+The port of `repro.models.moe` where every expert is local (model = 1).
+Under data parallelism (`sharding.use_mesh` over data / pod ranks) each
+rank routes its own rows at the capacity of its own tokens, as the
+reference's `local_tokens` does, and the load-balance and z-loss terms
+are averaged over the batch ranks.  Routing: f32 router
 logits, softmax, top-k with ties to the lowest expert id (a stable
 descending sort cut to k: `torch.topk` does not promise that order),
 the top-k weights renormalised with a 1e-9 floor.  Dispatch is the
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.routing import run_ranks
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Mlp, _draw, _empty
 
@@ -49,6 +53,11 @@ class Moe(nn.Module):
     """router [d, E], w_gate / w_up [E, d, f], w_down [E, f, d], and with
     `cfg.moe_num_shared` the always-on `shared` MLP of width
     f * moe_num_shared."""
+
+    SPECS = {"router": (None, None),
+             "w_gate": ("experts", "fsdp", "expert_ff"),
+             "w_up": ("experts", "fsdp", "expert_ff"),
+             "w_down": ("experts", "expert_ff", "fsdp")}
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -86,8 +95,9 @@ class MoeAux:
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
-    """Slots per expert for n_tokens tokens, as the reference's at
-    data = pod = 1."""
+    """Slots per expert for n_tokens tokens: the reference's capacity
+    when n_tokens is this rank's own (its `local_tokens` divides the
+    batch by data x pod)."""
     return max(int(math.ceil(n_tokens * cfg.moe_top_k / cfg.moe_num_experts
                              * cfg.moe_capacity_factor)), 4)
 
@@ -151,13 +161,18 @@ def moe(p: Moe, x: torch.Tensor):
     b, s, d = x.shape
     logits, probs, topk_w, topk_idx = route(p, x)
 
-    # Switch load-balance loss (density by scatter-add) and router z-loss
+    # Switch load-balance loss (density by scatter-add) and router
+    # z-loss, of the whole batch: under data parallelism the density,
+    # the mean probabilities and the z-loss's mean are averaged over the
+    # batch ranks before their product, as the reference computes them
+    # on the global batch
     flat = topk_idx.reshape(-1)
     density = torch.zeros(e, dtype=torch.float32, device=x.device) \
         .index_add_(0, flat, torch.ones(flat.shape, device=x.device)) \
         / float(flat.numel())
-    lb_loss = e * torch.sum(density * probs.mean(dim=(0, 1)))
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    lb_loss = e * torch.sum(sh.batch_mean(density)
+                            * sh.batch_mean(probs.mean(dim=(0, 1))))
+    z_loss = sh.batch_mean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
 
     n = b * s
     disp, wdisp, slot = dispatch(topk_idx, topk_w, e, capacity(cfg, n),

@@ -32,6 +32,12 @@ class Mamba(nn.Module):
     [di, dt_rank + 2 N], dt_proj [dt_rank, di], dt_bias [di], A_log
     [di, N], D [di], out_proj [di, d]."""
 
+    SPECS = {"in_proj": ("fsdp", "d_inner"), "conv_w": ("conv", "d_inner"),
+             "conv_b": ("d_inner",), "x_proj": ("d_inner", None),
+             "dt_proj": ("dt_rank", "d_inner"), "dt_bias": ("d_inner",),
+             "A_log": ("d_inner", "d_state"), "D": ("d_inner",),
+             "out_proj": ("d_inner", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()

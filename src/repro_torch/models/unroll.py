@@ -20,6 +20,8 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import sharding
+
 _UNROLL = False
 
 
@@ -110,6 +112,15 @@ def maybe_checkpoint(f):
 
     @functools.wraps(f)
     def wrapped(*args, **kwargs):
-        return checkpoint(f, *args, use_reentrant=False, **kwargs)
+        # the recompute may run on autograd's device thread: it runs
+        # under the sharding context of this call (thread-local), so a
+        # data-parallel body's all-reduces recompute the same values
+        ctx = sharding.context()
+
+        def body(*a, **kw):
+            with sharding.restored(ctx):
+                return f(*a, **kw)
+
+        return checkpoint(body, *args, use_reentrant=False, **kwargs)
 
     return wrapped

@@ -35,6 +35,11 @@ class MLstm(nn.Module):
     """up_proj [d, 4d] (the x branch and the gate branch, di = 2d each),
     wq / wk / wv [d, d], w_if [d, 2H], b_i / b_f [H], down_proj [2d, d]."""
 
+    SPECS = {"up_proj": ("fsdp", "d_inner"), "wq": ("fsdp", "heads"),
+             "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+             "w_if": ("fsdp", None), "b_i": (None,), "b_f": (None,),
+             "down_proj": ("d_inner", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -158,6 +163,9 @@ def mlstm_decode(p: MLstm, x: torch.Tensor, state):
 class SLstm(nn.Module):
     """w_gates [d, 4d] (i, f, z, o pre-activations), r_gates [H, dh, 4dh],
     b_gates [4d], out_proj [d, d]."""
+
+    SPECS = {"w_gates": ("fsdp", "d_inner"), "r_gates": ("heads", None, None),
+             "b_gates": ("d_inner",), "out_proj": ("fsdp", "d_model")}
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):

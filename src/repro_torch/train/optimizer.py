@@ -150,6 +150,35 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
             "mu": {name: leaf_state(p) for name, p in params.items()}}
 
 
+def opt_state_specs(param_specs: dict, cfg: OptConfig) -> dict:
+    """Logical-axis specs of the optimizer state, mirroring the
+    parameters' ({name: axes}, `models.model.param_specs`).  int8: the
+    codes [..., nb, block] shard their leading axes as the parameter
+    does, and the parameter's last-axis rule lands on the *block* axis
+    (256 divides any mesh axis; nb often does not: 5120 / 256 = 20
+    blocks cannot split 16 ways); the scales [..., nb, 1] try the nb
+    axis."""
+    def leaf(spec):
+        if cfg.state_dtype == "int8":
+            qspec = tuple(spec[:-1]) + (None, spec[-1])
+            sspec = tuple(spec[:-1]) + (spec[-1], None)
+            return {"m_q": qspec, "m_s": sspec, "v_q": qspec, "v_s": sspec}
+        return {"m": tuple(spec), "v": tuple(spec)}
+
+    return {"count": (),
+            "mu": {name: leaf(spec) for name, spec in param_specs.items()}}
+
+
+def state_shapes(shape, cfg: OptConfig) -> dict:
+    """The shape of each of a parameter's state leaves."""
+    if cfg.state_dtype == "int8":
+        nb = -(-shape[-1] // cfg.quant_block)
+        q = tuple(shape[:-1]) + (nb, cfg.quant_block)
+        s = tuple(shape[:-1]) + (nb, 1)
+        return {"m_q": q, "m_s": s, "v_q": q, "v_s": s}
+    return {"m": tuple(shape), "v": tuple(shape)}
+
+
 # -- update ------------------------------------------------------------------
 
 
@@ -165,13 +194,22 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig):
+def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig, *,
+                  grad_norm: torch.Tensor | None = None, moments=None):
     """One AdamW step.  params / grads: {name: tensor}, the same names;
     each parameter is overwritten in place, and so are the f32 moments
     of `state` (the state passed in is spent).  Returns (params, the new
-    state, metrics {"grad_norm", "lr"} as device tensors)."""
+    state, metrics {"grad_norm", "lr"} as device tensors).
+
+    A data-parallel trainer passes the shards of a parameter tree:
+    `grad_norm`, the norm of the whole gradient (by default that of
+    `grads`), and `moments`, an object whose `load(name, mu, p)` gives
+    the f32 (m, v) of the parameter shard p from its state leaves and
+    whose `store(name, m, v)` gives the new state leaves (by default
+    the leaves are p's own: f32 moments, or int8 codes of p's own
+    blocks)."""
     count = state["count"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
     lr = lr_at(cfg, count)
     cf = count.to(torch.float32)
@@ -184,7 +222,9 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig):
         g = torch.empty(p.shape, dtype=torch.float32, device=p.device)
         g.copy_(grads[name])
         g.mul_(scale)
-        if cfg.state_dtype == "int8":
+        if moments is not None:
+            m, v = moments.load(name, mu, p)
+        elif cfg.state_dtype == "int8":
             m = dequantize_blockwise(mu["m_q"], mu["m_s"], p.shape)
             v = dequantize_v_log(mu["v_q"], mu["v_s"], p.shape)
         else:
@@ -205,11 +245,19 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig):
         else:
             p.copy_(pf.sub_(step))
         del step, pf
-        if cfg.state_dtype == "int8":
-            mq, ms = quantize_blockwise(m, cfg.quant_block)
-            vq, vs = quantize_v_log(v, cfg.quant_block)
-            new_mu[name] = {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+        if moments is not None:
+            new_mu[name] = moments.store(name, m, v)
+        elif cfg.state_dtype == "int8":
+            new_mu[name] = quantized_moments(m, v, cfg)
         else:
             new_mu[name] = {"m": m, "v": v}
     return params, {"count": count, "mu": new_mu}, {"grad_norm": gn,
                                                      "lr": lr}
+
+
+def quantized_moments(m: torch.Tensor, v: torch.Tensor,
+                      cfg: OptConfig) -> dict:
+    """The int8 state leaves of f32 moments m and v."""
+    mq, ms = quantize_blockwise(m, cfg.quant_block)
+    vq, vs = quantize_v_log(v, cfg.quant_block)
+    return {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}

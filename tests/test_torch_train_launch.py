@@ -2,7 +2,8 @@
 `tests/test_system.py::test_train_driver_with_restart` on the port (4
 steps with checkpoints, stop, `--resume` to 6), whose step-6 parameters
 and optimizer state equal a straight 6-step run's bit for bit; the
-printed lines; the mesh flags refused.  On the CPU."""
+printed lines; the mesh flags refused outside a process group.  On the
+CPU."""
 
 from __future__ import annotations
 
@@ -60,5 +61,10 @@ def test_resume_without_checkpoint_starts_at_zero(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--mesh-data", "--mesh-model"])
 def test_mesh_flags_refused(flag):
-    with pytest.raises(ValueError, match="sharding"):
+    """The model axis is refused (ROADMAP 1 item 8e.6); the data axis
+    needs a process group of that many ranks, which one process is
+    not."""
+    err, match = (ValueError, "8e.6") if flag == "--mesh-model" \
+        else (RuntimeError, "torchrun")
+    with pytest.raises(err, match=match):
         train_mod.main(ARGS + ["--steps", "1", flag, "2"])

@@ -1,0 +1,349 @@
+"""Gloo ranks for tests/test_torch_train_dist.py (not collected).
+
+`spawn(job, world, outdir, **kw)` starts `world` processes with
+`torch.multiprocessing`, each on one thread, initialising a gloo process
+group through `repro_torch.launch.mesh.init_process_mesh(device="cpu")`
+and running one job; rank r saves its outputs to `outdir/rank{r}.npz`.
+
+The jobs:
+  * `compress`: `train.compression.compressed_psum` at world 4 on the
+    reference's COMPRESSION gradient (tests/test_train.py), one step
+    and 20 with error feedback;
+  * `pipeline`: `train.pipeline.pipeline_forward` on the reference's
+    PIPELINE case over the world's stages, and over a one-rank group;
+  * `elastic`: the reference's checkpoint (written under a (4, 2) mesh)
+    restored under (2, 4), and the port's own save under (4, 2) restored
+    under (2, 4);
+  * `train`: data-parallel training steps on the reference's weights
+    and batches, the int8 update on shards, the resident bytes, resumes
+    across a change of D, and data-parallel serving.
+
+This module imports torch and the port only, never jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch_dist_worker import free_port
+
+from repro_torch import convert
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import serve as serve_mod
+from repro_torch.launch import train as train_mod
+from repro_torch.models import model as M
+from repro_torch.models import sharding as sh
+from repro_torch.train import compression as C
+from repro_torch.train import optimizer as opt
+from repro_torch.train import train_step as ts
+from repro_torch.train.pipeline import pipeline_forward
+
+# the data-parallel training cases: (arch, labels masked in rank 1's rows)
+TRAIN_CASES = {"gemma2": ("gemma2-2b", False),
+               "deepseek": ("deepseek-moe-16b", False),
+               "masked": ("gemma2-2b", True)}
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 2
+OPT = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+HP = ts.TrainHParams(loss_chunk=8)
+# the resume runs: launch.train's flags, fp32 state; every step inside
+# the warmup, so the learning rate does not depend on --steps
+RESUME_ARGV = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+               "--batch", "4", "--seq", "16", "--lr", "1e-3", "--warmup",
+               "10", "--log-every", "1", "--ckpt-every", "2"]
+SERVE_ARGV = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+              "--batch", "4", "--prompt-len", "12", "--gen", "6"]
+
+
+def f32(arch: str):
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+def resume_cfg():
+    return f32("gemma2-2b")
+
+
+def pipeline_cfg():
+    return dataclasses.replace(get_config("starcoder2-7b", smoke=True),
+                               num_layers=4)
+
+
+def tree_of(arrays, prefix: str) -> dict:
+    """The nested dict under `prefix` of a flat {"a/b/c": array} map."""
+    out = {}
+    for key, val in arrays.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        parts = key[len(prefix):].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return out
+
+
+def _job_compress(kw: dict) -> dict:
+    rank = dist.get_rank()
+    rng = np.random.default_rng(0)
+    g_global = rng.standard_normal((4, 64, 33)).astype(np.float32)
+    g = {"w": torch.from_numpy(g_global[rank])}
+    err = C.init_error_state(g)
+    q, s = opt.quantize_blockwise(g["w"] + err["w"], 256)
+    stats = {}
+    red, err1 = C.compressed_psum(g, err, stats=stats)
+    acc = torch.zeros(64, 33)
+    err = C.init_error_state(g)
+    for _ in range(20):
+        r, err = C.compressed_psum(g, err)
+        acc += r["w"]
+    return dict(q=q.numpy(), s=s.numpy(), red=red["w"].numpy(),
+                err=err1["w"].numpy(), acc=acc.numpy(),
+                wire=np.asarray([stats["wire_bytes"], stats["f32_bytes"]]))
+
+
+def _pipeline_run(model, cfg, group, x, positions):
+    params = ts.parameters(model)
+    out = pipeline_forward(cfg, group, model.blocks, x, positions, 2)
+    loss = torch.sum(out.float() ** 2)
+    names = [n for n, p in params.items() if n.startswith("blocks.")]
+    grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                allow_unused=True)
+    out_d = {"out": out.detach().float().numpy()}
+    for n, g in zip(names, grads):
+        if g is not None:
+            out_d["grad/" + n] = g.float().numpy()
+    return out_d
+
+
+def _job_pipeline(kw: dict) -> dict:
+    d = dict(np.load(kw["inputs"]))
+    cfg = pipeline_cfg()
+    model = convert.model_from(tree_of(d, "params/"), cfg, device="cpu")
+    x, positions = torch.from_numpy(d["x"]), torch.from_numpy(d["positions"])
+    out = _pipeline_run(model, cfg, None, x, positions)
+    # one stage: a group of this rank alone (every rank makes both)
+    ones = [dist.new_group([r]) for r in range(dist.get_world_size())]
+    one = _pipeline_run(model, cfg, ones[dist.get_rank()], x, positions)
+    out.update({"one/" + k: v for k, v in one.items()})
+    try:
+        pipeline_forward(dataclasses.replace(cfg, num_layers=3), None,
+                         model.blocks, x, positions, 2)
+    except ValueError as e:
+        out["refused"] = np.asarray(str(e))
+    return out
+
+
+def _job_elastic(kw: dict) -> dict:
+    rank = dist.get_rank()
+    a = mesh_mod.make_lm_mesh(4, 2, device="cpu")
+    b = mesh_mod.make_lm_mesh(2, 4, device="cpu")
+    spec = ("data", "model")
+    tmpl = {"w": torch.empty((8, 16))}
+    target = {"w": sh.NamedSharding(b, spec)}
+    out = {}
+    # the reference's checkpoint, written under (4, 2)
+    got = ckpt.restore(ckpt.latest_step_dir(kw["ref_dir"]), tmpl,
+                       shardings=target)["w"]
+    out["ref_local"] = got.to_local().numpy()
+    out["ref_placements"] = np.asarray(str(got.placements))
+    out["ref_full"] = got.full_tensor().numpy()
+    # constrain redistributes a DTensor: rows over data, whole columns
+    with sh.use_mesh(b):
+        rows = sh.constrain(got, "batch", None)
+    out["rows_local"] = rows.to_local().numpy()
+    out["rows_placements"] = np.asarray(str(rows.placements))
+    # the port's own save under (4, 2), restored under (2, 4)
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, 16)).astype(np.float32))
+    src = sh.NamedSharding(a, spec)
+    from torch.distributed.tensor import DTensor
+    local = w[sh.local_slices(a, spec, w.shape)].contiguous()
+    dt = DTensor.from_local(local, a.device_mesh, src.placements(),
+                            run_check=False, shape=w.shape,
+                            stride=w.stride())
+    path = ckpt.save(kw["own_dir"], 3, {"w": dt,
+                                        "count": torch.tensor(3)})
+    back = ckpt.restore(path, {"w": tmpl["w"], "count": torch.tensor(0)},
+                        shardings={"w": target["w"], "count": None})
+    out["own_local"] = back["w"].to_local().numpy()
+    out["own_count"] = back["count"].numpy()
+    out["own_w"] = w.numpy()
+    out["coords"] = np.asarray([b.coordinate["data"], b.coordinate["model"],
+                                a.coordinate["data"], a.coordinate["model"],
+                                rank])
+    # a pod x data x model mesh: each set of axes' group, and the batch
+    # rows of this rank under the default rules (batch -> pod, data)
+    c = mesh_mod.make_lm_mesh(2, 2, pod=2, device="cpu")
+    for axes in GROUP_AXES:
+        out["group/" + "+".join(axes)] = np.asarray(
+            dist.get_process_group_ranks(c.group(axes)))
+    with sh.use_mesh(c):
+        out["batch_rows"] = sh.batch_rows(torch.arange(8)).numpy()
+        out["batch_gather"] = sh.batch_gather(
+            sh.batch_rows(torch.arange(8))).numpy()
+    return out
+
+
+GROUP_AXES = [("pod",), ("data",), ("model",), ("pod", "data"),
+              ("pod", "model"), ("data", "model"), ("pod", "data", "model")]
+
+
+def _resident(zero: ts.Zero3, state: dict) -> np.ndarray:
+    """(bytes of parameter storage this rank holds, bytes of its
+    optimizer state)."""
+    seen, p_bytes = set(), 0
+    for t in list(zero.shards.values()) + list(zero.params.values()):
+        if t.data_ptr() not in seen and t.numel():
+            seen.add(t.data_ptr())
+            p_bytes += t.numel() * t.element_size()
+    s_bytes = sum(t.numel() * t.element_size()
+                  for leaves in state["mu"].values() for t in leaves.values())
+    return np.asarray([p_bytes, s_bytes])
+
+
+def _train_cases(kw: dict, mesh) -> dict:
+    out = {}
+    for name in TRAIN_CASES:
+        d = dict(np.load(os.path.join(kw["inputs"], f"{name}.npz")))
+        arch, _ = TRAIN_CASES[name]
+        cfg = f32(arch)
+        model = convert.model_from(tree_of(d, "params/"), cfg, device="cpu")
+        ocfg = opt.OptConfig(**OPT)
+        zero = ts.Zero3(model, mesh)
+        state = zero.init_opt_state(ocfg)
+        out[f"{name}/resident"] = _resident(zero, state)
+        step = ts.make_sharded_train_step(cfg, ocfg, zero, HP)
+        for i in range(TRAIN_STEPS):
+            batch = {k: torch.from_numpy(d[f"batch{i}/{k}"])
+                     for k in ("tokens", "labels")}
+            with sh.use_mesh(mesh):
+                rows = {k: sh.batch_rows(v) for k, v in batch.items()}
+            state, m = step(model, state, rows)
+            for k in ("loss", "xent", "lb_loss", "z_loss", "grad_norm",
+                      "tokens"):
+                out[f"{name}/step{i}/{k}"] = m[k].numpy()
+            for n, leaves in zero.full_state(state, ocfg)["mu"].items():
+                for k, t in leaves.items():   # a copy: whole leaves
+                    out[f"{name}/step{i}/mu/{n}/{k}"] = t.numpy().copy()
+        zero.gather()
+        for n, p in model.named_parameters():
+            out[f"{name}/param/{n}"] = p.detach().numpy()
+    return out
+
+
+def _int8_update(kw: dict, mesh) -> dict:
+    """apply_updates on the shards of given params, grads and int8 state
+    (`train_step._Int8Moments`): the new codes, gathered."""
+    d = dict(np.load(os.path.join(kw["inputs"], "int8.npz")))
+    cfg = f32("gemma2-2b")
+    model = M.Model(cfg, device="cpu")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(d[f"p/{n}"]))
+    ocfg = opt.OptConfig(**OPT, state_dtype="int8")
+    zero = ts.Zero3(model, mesh)
+    st = zero.state_shardings(ocfg)["mu"]
+    grads = {n: torch.from_numpy(d[f"g/{n}"])[sh.local_slices(
+        mesh, zero.shardings[n].spec, zero.shapes[n])].contiguous()
+        for n in zero.shapes}
+    mu = {n: {k: torch.from_numpy(d[f"mu/{n}/{k}"])[sh.local_slices(
+        mesh, st[n][k].spec, d[f"mu/{n}/{k}"].shape)].contiguous()
+        for k in ("m_q", "m_s", "v_q", "v_s")} for n in zero.shapes}
+    state = {"count": torch.tensor(3, dtype=torch.int32), "mu": mu}
+    moments = zero.moments(ocfg)
+    _, state, m = opt.apply_updates(zero.shards, grads, state, ocfg,
+                                    grad_norm=zero.grad_norm(grads),
+                                    moments=moments)
+    out = {"int8/whole": np.asarray(sorted(moments.whole)),
+           "int8/grad_norm": m["grad_norm"].numpy()}
+    zero.gather()
+    for n, p in model.named_parameters():
+        out[f"int8/param/{n}"] = p.detach().numpy()
+    for n, leaves in zero.full_state(state, ocfg)["mu"].items():
+        for k, t in leaves.items():
+            out[f"int8/mu/{n}/{k}"] = t.numpy()
+    return out
+
+
+def _job_train(kw: dict) -> dict:
+    mesh = mesh_mod.make_lm_mesh(2, 1, device="cpu")
+    out = _train_cases(kw, mesh)
+    out.update(_int8_update(kw, mesh))
+    # resumes across D: from the one-rank run's step-2 checkpoint to 4,
+    # and a D = 2 checkpoint at step 2 for a one-rank resume
+    cfg = resume_cfg()
+    model, state = train_mod.run(train_mod.parse_args(
+        RESUME_ARGV + ["--mesh-data", "2", "--steps", "4", "--ckpt-dir",
+                       kw["ckpt_d1"], "--resume"]), cfg=cfg,
+        log=lambda s: None)
+    for n, p in model.named_parameters():
+        out[f"resume12/param/{n}"] = p.detach().numpy()
+    lines = []
+    train_mod.run(train_mod.parse_args(
+        RESUME_ARGV + ["--mesh-data", "2", "--steps", "2", "--ckpt-dir",
+                       kw["ckpt_d2"]]), cfg=cfg, log=lines.append)
+    out["train_lines"] = np.asarray(lines)
+    # serving: the CLI's batch, and the reference's weights
+    out["serve/cli"] = serve_mod.run(serve_mod.parse_args(
+        SERVE_ARGV + ["--mesh-data", "2"]), log=lambda s: None)
+    d = dict(np.load(os.path.join(kw["inputs"], "serve.npz")))
+    model = convert.model_from(tree_of(d, "params/"),
+                               get_config("gemma2-2b", smoke=True),
+                               device="cpu")
+    out["serve/ref_weights"] = serve_mod.run(serve_mod.parse_args(
+        SERVE_ARGV + ["--mesh-data", "2"]), model=model, log=lambda s: None)
+    try:
+        serve_mod.run(serve_mod.parse_args(
+            SERVE_ARGV + ["--batch", "3", "--mesh-data", "2"]))
+    except ValueError as e:
+        out["refused/serve"] = np.asarray(str(e))
+    try:
+        train_mod.run(train_mod.parse_args(
+            RESUME_ARGV + ["--batch", "3", "--mesh-data", "2", "--steps",
+                           "1"]))
+    except ValueError as e:
+        out["refused/train"] = np.asarray(str(e))
+    return out
+
+
+JOBS = dict(compress=_job_compress, pipeline=_job_pipeline,
+            elastic=_job_elastic, train=_job_train)
+
+
+def _entry(rank: int, world: int, port: int, job: str, outdir: str,
+           kw: dict) -> None:
+    torch.set_num_threads(1)
+    mesh_mod.init_process_mesh(device="cpu",
+                               init_method=f"tcp://127.0.0.1:{port}",
+                               rank=rank, world_size=world)
+    try:
+        out = JOBS[job](kw)
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(job: str, world: int, outdir: str, timeout: float = 300,
+          **kw) -> list[dict]:
+    """Run `job` on `world` gloo ranks; each rank's outputs, in rank
+    order.  The ranks are killed, and TimeoutError raised, if they have
+    not all ended within `timeout` seconds."""
+    import time
+
+    ctx = mp.spawn(_entry, args=(world, free_port(), job, outdir, kw),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{job} on {world} ranks: not done in "
+                               f"{timeout} s")
+    return [dict(np.load(os.path.join(outdir, f"rank{r}.npz")))
+            for r in range(world)]
