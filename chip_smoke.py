@@ -260,17 +260,20 @@ failure:
      no kernel of the six, checked): restore_check (phase 16's int8
      checkpoint restored with `restore(shardings=)` onto the one-rank
      LM mesh equals the saved tree); train_mesh (gemma2-2b whole, bf16,
-     4 x 4096, 2 steps of `launch.train.run --mesh-data 1` through the
-     named device mesh and ZeRO-3 placement: step ms and peak beside
-     phase 16's, step 0's xent equal to phase 16's bit for bit,
-     grad_norm and step 1's xent within 1e-5); compress_check
+     4 x 4096, 2 steps of `launch.train.run --mesh-data 1 --mesh-model
+     1` through the named device mesh, ZeRO-3 placement and the model
+     axis's code (a model group of one rank: every split whole, every
+     enter / leave a no-op): step ms (and their distance from phase
+     16's, against +-1 %) and peak beside phase 16's, step 0's xent
+     equal to phase 16's bit for bit, grad_norm and step 1's xent
+     within 1e-5); compress_check
      (`compressed_psum` over that step's 2.61 B gradients equals the
      plain quantize -> dequantize of g + e bit for bit, the error g32 -
      deq; wire bytes against f32's, device ms); pipeline_check (one
      stage, M = 2, on an f32 2-layer cut: within 2e-4 of the plain
      forward, gradient cosine > 0.999); serve_mesh (`launch.serve
-     --mesh-data 1`, gemma2-2b whole, 8 x 64 + 8, tokens equal the
-     one-device `generate`'s);
+     --mesh-data 1 --mesh-model 1`, gemma2-2b whole, 8 x 64 + 8, tokens
+     equal the one-device `generate`'s);
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -499,6 +502,10 @@ def compare_topk(ki, ks, pi, ps, what: str,
 
 TRAIN_LR = 1e-4     # train_gemma2's peak learning rate (warmup 2, 6 steps)
 TRAIN_SHAPE = (4, 4096, 512)    # train_gemma2's batch, sequence, loss chunk
+# lm_gemma2's median decode step on the H100 (700 W) as PERF.md recorded
+# it before the layers read their model-axis split (one run; its host
+# clock spreads ~10 % between runs)
+LM_GEMMA2_DECODE_MS_BEFORE = 79.699
 
 
 def tree_bytes(tree) -> int:
@@ -976,14 +983,16 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
 def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     """Phase 17 [train_mesh]: training on several devices, at NCCL world
     1 (one rank a card; the worlds of 2, 4 and 8 run in gloo ranks on
-    the CPU in tests/test_torch_train_dist.py).  No kernel of the six
-    is on this path.  restore_check (phase 16's int8 checkpoint restored
-    with shardings onto the one-rank mesh), train_mesh (gemma2-2b whole,
-    2 steps of `launch.train.run --mesh-data 1` through the named device
-    mesh and ZeRO-3 placement, against phase 16's steps),
-    compress_check (`compressed_psum` over that step's gradients),
-    pipeline_check (one stage, M = 2, on an f32 2-layer cut) and
-    serve_mesh (`launch.serve --mesh-data 1`)."""
+    the CPU in tests/test_torch_train_dist.py and
+    tests/test_torch_model_axis.py).  No kernel of the six is on this
+    path.  restore_check (phase 16's int8 checkpoint restored with
+    shardings onto the one-rank mesh), train_mesh (gemma2-2b whole, 2
+    steps of `launch.train.run --mesh-data 1 --mesh-model 1` through
+    the named device mesh, ZeRO-3 placement and the model axis's code,
+    against phase 16's steps), compress_check (`compressed_psum` over
+    that step's gradients), pipeline_check (one stage, M = 2, on an f32
+    2-layer cut) and serve_mesh (`launch.serve --mesh-data 1
+    --mesh-model 1`)."""
     import shutil
     import torch.distributed as tdist
 
@@ -1076,9 +1085,9 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     try:
         model, _ = train_mod.run(train_mod.parse_args([
             "--arch", "gemma2-2b", "--device", dev.type, "--mesh-data", "1",
-            "--steps", "2", "--batch", str(B), "--seq", str(S), "--lr",
-            str(TRAIN_LR), "--warmup", "2", "--log-every", "1", "--seed",
-            str(seed)]), cfg=gemma, log=lambda s: None)
+            "--mesh-model", "1", "--steps", "2", "--batch", str(B), "--seq",
+            str(S), "--lr", str(TRAIN_LR), "--warmup", "2", "--log-every",
+            "1", "--seed", str(seed)]), cfg=gemma, log=lambda s: None)
     finally:
         ts.make_sharded_train_step, opt.apply_updates = real_make, real_apply
     peak = torch.cuda.max_memory_allocated()
@@ -1087,12 +1096,17 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     (p_ms0, p_m0), (p_ms1, p_m1) = p16["steps"][:2]
     e_gn = abs(m0["grad_norm"] - p_m0["grad_norm"]) / p_m0["grad_norm"]
     e_x1 = abs(m1["xent"] - p_m1["xent"]) / p_m1["xent"]
+    d_ms = [(a - b) / b * 100 for a, b in ((ms0, p_ms0), (ms1, p_ms1))]
     log(f"[train_mesh] train_mesh gemma2-2b whole, bf16, {B} x {S}, "
-        f"launch.train --mesh-data 1 (named device mesh, ZeRO-3 placement; "
+        f"launch.train --mesh-data 1 --mesh-model 1 (named device mesh, "
+        f"ZeRO-3 placement, the model axis's code at one model rank; "
         f"{run_s:.1f} s with the init): step ms {ms0:.1f}, {ms1:.1f} beside "
-        f"phase 16's {p_ms0:.1f}, {p_ms1:.1f} (its median "
-        f"{p16['median_ms']:.1f}); peak device bytes {peak} beside phase "
-        f"16's {p16['peak']}; step 0 xent {m0['xent']!r} vs {p_m0['xent']!r}"
+        f"phase 16's {p_ms0:.1f}, {p_ms1:.1f} ({d_ms[0]:+.2f} %, "
+        f"{d_ms[1]:+.2f} %: "
+        f"{'within' if max(map(abs, d_ms)) <= 1 else 'OUTSIDE'} +-1 %; its "
+        f"median {p16['median_ms']:.1f}); peak device bytes {peak} beside "
+        f"phase 16's {p16['peak']}; step 0 xent {m0['xent']!r} vs "
+        f"{p_m0['xent']!r}"
         f" ({'equal' if m0['xent'] == p_m0['xent'] else 'DIFFERENT'}); "
         f"grad_norm {e_gn:.3g} and step 1 xent {e_x1:.3g} relative apart "
         f"(gate 1e-5; the embedding backward adds with atomics) ({smi})")
@@ -1178,7 +1192,7 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     model = lm.init_model(gemma, seed, device=dev)
     argv = ["--arch", "gemma2-2b", "--device", dev.type, "--batch", "8",
             "--prompt-len", "64", "--gen", "8", "--mesh-data", "1",
-            "--seed", str(seed)]
+            "--mesh-model", "1", "--seed", str(seed)]
     t0 = time.perf_counter()
     got = serve_mod.run(serve_mod.parse_args(argv), model=model,
                         log=lambda s: None)
@@ -1192,8 +1206,8 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
                               seed=args.seed).cpu().numpy()
     one_s = sync_s(t0)
     same = np.array_equal(got, want)
-    log(f"[train_mesh] serve_mesh: launch.serve --mesh-data 1, gemma2-2b "
-        f"whole, 8 x 64 + 8: tokens {'equal' if same else 'DIFFER FROM'} "
+    log(f"[train_mesh] serve_mesh: launch.serve --mesh-data 1 --mesh-model "
+        f"1, gemma2-2b whole, 8 x 64 + 8: tokens {'equal' if same else 'DIFFER FROM'} "
         f"the one-device generate's; {mesh_s * 1e3:.0f} ms against "
         f"{one_s * 1e3:.0f} ms")
     if not same:
@@ -3563,7 +3577,11 @@ def main() -> int:
             f"embedding runs in f32 (the reference's sqrt(d_model) scale "
             f"is a numpy f64 scalar, which promotes bf16)")
         batch = lm_serve.make_batch(gemma, 8, 512, args.seed, dev)
-        lm_serve_run("lm_gemma2", g16, batch, 64)
+        med = lm_serve_run("lm_gemma2", g16, batch, 64)
+        log(f"[lm] lm_gemma2: decode step median {med:.3f} ms beside "
+            f"{LM_GEMMA2_DECODE_MS_BEFORE} ms before the model axis's "
+            f"per-layer split checks (the one-card path runs them as "
+            f"no-ops; host-clock spread between runs ~10 %) ({smi})")
         lm_step_profile("lm_gemma2", g16, batch, 64)
         lm_no_sync("lm_gemma2", g16, batch, 64)
     with lm_cell("lm_gemma2_long"):

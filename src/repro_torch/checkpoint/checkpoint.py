@@ -21,7 +21,8 @@ layout, and the other ranks wait for it.  Elastic restore, as the
 reference's: `restore(..., shardings=)` gives each leaf back as this
 rank's shard under the placements of the *current* mesh, whatever
 mesh wrote it, read from the memory-mapped file (only the shard's
-bytes are read).
+bytes are read).  A leaf split over the model axis is one such DTensor
+like any other, so a run resumes across a change of (data, model).
 """
 
 from __future__ import annotations

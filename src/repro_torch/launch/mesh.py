@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 import os
 
 import torch
@@ -269,23 +270,88 @@ def make_lm_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,
                                       mesh_dim_names=names), dev)
 
 
+class PlanMesh:
+    """The shape of a `pod` x `data` x `model` mesh and one rank's
+    coordinates, without processes: what the sharding rules and
+    `train_step.Zero3` read to place shards, for a plan on the meta
+    device (no collective runs: `group` is None)."""
+
+    def __init__(self, data: int = 1, model: int = 1, rank: int = 0):
+        self.shape = {"data": data, "model": model}
+        self.coordinate = {"data": rank // model, "model": rank % model}
+        self.device = torch.device("meta")
+
+    def size(self, axes) -> int:
+        n = 1
+        for a in (axes,) if isinstance(axes, str) else axes:
+            n *= self.shape[a]
+        return n
+
+    def group(self, axes):
+        return None
+
+
+def model_axis_plan(cfg, data: int = 1, model: int = 1,
+                    rank: int = 0) -> dict:
+    """{parameter name: (its spec, this rank's shape, bytes an
+    element)} of `cfg` at its width on a data x model mesh, as
+    `train_step.Zero3` places the shards: the model built on the meta
+    device, so no weights and no collectives at any width."""
+    from repro_torch.models import model as lm
+    from repro_torch.train.train_step import Zero3
+
+    m = lm.Model(cfg, device="meta")
+    zero = Zero3(m, PlanMesh(data, model, rank))
+    return {n: (zero.shardings[n].spec, tuple(t.shape), t.element_size())
+            for n, t in zero.shards.items()}
+
+
+def plan_main(argv=None) -> None:
+    """Print each configured architecture's model-axis plan at its
+    published width: bytes of parameters a rank holds against the
+    whole, and the leaves the model axis splits and replicates."""
+    import argparse
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+
+    ap = argparse.ArgumentParser(description=plan_main.__doc__)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=8)
+    args = ap.parse_args(argv)
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        plan = model_axis_plan(cfg, args.data, args.model)
+        whole = model_axis_plan(cfg)
+        mine = sum(math.prod(s) * b for _, s, b in plan.values())
+        full = sum(math.prod(s) * b for _, s, b in whole.values())
+        split = [n for n, (spec, _, _) in plan.items() if any(
+            "model" in ((e,) if isinstance(e, str) else e or ())
+            for e in spec)]
+        print(f"{arch}: (data {args.data}, model {args.model}) a rank holds "
+              f"{mine} of {full} parameter bytes ({mine / full:.4f}); "
+              f"{len(split)} of {len(plan)} leaves split over model")
+
+
 def cli_mesh(args, log):
     """The LM CLIs' layout from `--mesh-data` / `--mesh-model` / `--batch`
     / `--device`: (the `NamedMesh` or None, this process's device, the
-    log to use).  A mesh where `--mesh-data` > 1 or a process group is
-    up (torchrun); then only rank 0 logs, and the batch must split over
-    the data ranks.  The model axis is refused: tensor and expert
-    parallelism are not ported yet."""
-    if args.mesh_model != 1:
-        raise ValueError("--mesh-model must be 1: tensor and expert "
-                         "parallelism over the model axis are not ported "
-                         "yet (ROADMAP 1 item 8e.6)")
-    if args.mesh_data < 1:
-        raise ValueError(f"--mesh-data must be >= 1, not {args.mesh_data}")
-    if args.mesh_data == 1 and not dist.is_initialized():
+    log to use).  A mesh where `--mesh-data` or `--mesh-model` is above
+    1 or a process group is up (torchrun, whose world must hold data x
+    model ranks); then only rank 0 logs, and the batch must split over
+    the data ranks (the model ranks of a data row take the same
+    rows)."""
+    for flag in ("mesh_data", "mesh_model"):
+        if getattr(args, flag) < 1:
+            raise ValueError(f"--{flag.replace('_', '-')} must be >= 1, not "
+                             f"{getattr(args, flag)}")
+    if args.mesh_data == args.mesh_model == 1 and not dist.is_initialized():
         return None, resolve_device(args.device), log
     mesh = make_lm_mesh(args.mesh_data, args.mesh_model, device=args.device)
     if args.batch % args.mesh_data:
         raise ValueError(f"--batch {args.batch} does not split over "
                          f"--mesh-data {args.mesh_data} ranks")
     return mesh, mesh.device, log if is_rank0() else (lambda s: None)
+
+
+if __name__ == "__main__":
+    plan_main()

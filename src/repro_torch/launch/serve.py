@@ -12,13 +12,16 @@ once, after the last step.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --smoke --device cpu --batch 4 --prompt-len 64 --gen 32
 
-`--mesh-data D` serves data-parallel over D processes (under torchrun:
-gloo with `--device cpu`, NCCL on cards): every rank builds the same
-weights and request batch, generates its own rows (`sharding.
-batch_rows`; the batch must divide over D), and the tokens are
-all-gathered, so every rank returns the whole batch; rank 0 prints.
-Greedy tokens equal one rank's.  `--mesh-model` other than 1 is
-refused (ROADMAP 1 item 8e.6).
+`--mesh-data D` serves data-parallel over D processes and `--mesh-model
+M` splits the model over M processes a data row (under torchrun, D x M
+processes: gloo with `--device cpu`, NCCL on cards): every rank builds
+the same weights and request batch, keeps its model shard of each
+weight (`train_step.Zero3` with `fsdp` off: the weights are whole over
+the data ranks), generates its data row's rows (`sharding.batch_rows`;
+the batch must divide over D), and the tokens are all-gathered, so
+every rank returns the whole batch; rank 0 prints.  The logits of a
+split vocab are gathered before the argmax, so greedy tokens (ties to
+the lowest id) equal one rank's.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ from repro_torch.models import model as M
 from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer
+from repro_torch.train.train_step import Zero3
+
+# serving keeps the weights whole over the data ranks (no ZeRO-3), split
+# only over the model axis
+SERVE_RULES = {"fsdp": None}
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -116,17 +124,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    if args.mesh_model != 1:
-        mesh_mod.cli_mesh(args, print)   # raises: the model axis
-    return args
+    return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace, model: M.Model | None = None,
         log=print) -> np.ndarray:
     """Serve one request batch per `args`; `model` replaces the one
-    drawn from `--seed` (its config is then the model's).  Returns the
-    [batch, gen] tokens, the whole batch on every rank."""
+    drawn from `--seed` (its config is then the model's; it is whole
+    again on return).  Returns the [batch, gen] tokens, the whole batch
+    on every rank."""
     mesh, dev, log = mesh_mod.cli_mesh(args, log)
     if model is None:
         model = M.init_model(get_config(args.arch, smoke=args.smoke),
@@ -135,19 +141,24 @@ def run(args: argparse.Namespace, model: M.Model | None = None,
     batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
     max_len = args.prompt_len + args.gen + 8
     tracer = Tracer()
-    with tracer.span("lm/generate", cat="lm", batch=args.batch,
-                     gen=args.gen) as sp:
-        # without a mesh (one device) the rows are the whole batch
-        with sh.use_mesh(mesh):
+    # without a mesh (one device) nothing is split and the rows are the
+    # whole batch
+    zero = Zero3(model, mesh, SERVE_RULES)
+    zero.gather()
+    try:
+        with tracer.span("lm/generate", cat="lm", batch=args.batch,
+                         gen=args.gen) as sp, sh.use_mesh(mesh, SERVE_RULES):
             rows = {k: sh.batch_rows(v) for k, v in batch.items()}
-        toks = generate(model, rows, steps=args.gen, max_len=max_len,
-                        seed=args.seed)
-        with sh.use_mesh(mesh):
+            toks = generate(model, rows, steps=args.gen, max_len=max_len,
+                            seed=args.seed)
             toks = sh.batch_gather(toks).cpu().numpy()
+    finally:
+        zero.gather(whole=True)
     dt = sp.duration_s
     log(f"[serve] generated {toks.shape} tokens in {dt:.1f}s "
         f"({toks.size / dt:.1f} tok/s) on {dev}"
-        + (f", {args.mesh_data} data-parallel ranks" if mesh else ""))
+        + (f", {args.mesh_data} data x {args.mesh_model} model ranks"
+           if mesh else ""))
     log(f"first sequences: {toks[:2, :16].tolist()}")
     if not (np.all(toks >= 0) and np.all(toks < cfg.vocab_size)):
         raise RuntimeError("generated a token outside the vocabulary")

@@ -21,16 +21,17 @@ Parameters and optimizer state are held by `train_step.Zero3`, which
 splits nothing on one device.  `--mesh-data D` trains data-parallel over
 D processes: each rank takes its rows of every global batch, and the
 parameters and optimizer state are stored as the sharding rules place
-them (ZeRO-3 over `data`); checkpoints keep the one-device layout, so
-`--resume` works across a change of D.  Under torchrun (gloo with
-`--device cpu`, NCCL on cards; a process group of its own otherwise):
+them (ZeRO-3 over `data`).  `--mesh-model M` adds tensor and expert
+parallelism over M processes a data row: each holds and computes its
+share of the heads, d_ff, d_inner, vocab and experts.  Checkpoints keep
+the one-device layout, so `--resume` works across a change of (D, M).
+Under torchrun, D x M processes (gloo with `--device cpu`, NCCL on
+cards):
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
-        --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
-        --smoke --device cpu --mesh-data 2 --steps 4 --batch 4 --seq 32
-
-`--mesh-model` other than 1 (tensor and expert parallelism) is refused:
-ROADMAP 1 item 8e.6.
+        --nproc-per-node 4 -m repro_torch.launch.train --arch gemma2-2b \\
+        --smoke --device cpu --mesh-data 2 --mesh-model 2 --steps 4 \\
+        --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -72,19 +73,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    if args.mesh_model != 1:
-        mesh_mod.cli_mesh(args, print)   # raises: the model axis
-    return args
+    return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace, cfg: ModelConfig | None = None,
         log=print):
     """Train per `args` (from `parse_args`); `cfg` replaces the arch's
     config (e.g. one cut in depth).  Returns (model, optimizer state).
-    Data-parallel (`--mesh-data` > 1, or any initialised process group)
-    every rank calls it and gets the whole model and state back; rank
-    0 logs."""
+    On a mesh (`--mesh-data` or `--mesh-model` > 1, or any initialised
+    process group) every rank calls it and gets the whole model and
+    state back; rank 0 logs."""
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
     mesh, dev, log = mesh_mod.cli_mesh(args, log)
     ocfg = opt_mod.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
@@ -130,7 +128,7 @@ def run(args: argparse.Namespace, cfg: ModelConfig | None = None,
                                         "data_seed": args.seed})
                 del tree
                 log(f"[ckpt] wrote {path}")
-    zero.gather()
+    zero.gather(whole=True)
     opt_state = zero.full_state(opt_state, ocfg)
     log("[done]")
     return model, opt_state

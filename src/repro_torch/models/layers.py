@@ -14,6 +14,16 @@ reference's shapes (`wq [d, H, dh]`, `wo [H, dh, d]`, `w_down [f, d]`),
 so carrying JAX weights across is a copy.  Parameters are allocated
 empty; `reset_parameters(generator)` draws them as the reference's init
 functions scale them.
+
+Over the model axis (`sharding.model_slice`) a parameter holds this
+rank's share: attention's q / k / v and their biases are column-
+parallel over the heads and wo row-parallel, the MLP's first products
+column-parallel over d_ff and w_down row-parallel.  The block's input
+passes `sharding.enter` once, the row-parallel product
+`sharding.leave`.  Where the kv heads do not divide while the q heads
+do (GQA), every rank projects all kv heads and gives each of its q
+heads its own; where the heads do not divide, the attention runs whole
+on every rank.  `RmsNorm` is replicated.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 
 
@@ -200,7 +211,8 @@ def _full_attention(q, k, v, cfg: ModelConfig, causal: bool, window: int,
 class Attention(nn.Module):
     """Grouped-query attention: wq [d, H, dh], wk / wv [d, Hkv, dh],
     wo [H, dh, d], and with `cfg.qkv_bias` (self-attention only) the
-    biases bq [H, dh], bk / bv [Hkv, dh]."""
+    biases bq [H, dh], bk / bv [Hkv, dh]; over the model axis, this
+    rank's heads of each."""
 
     SPECS = {"wq": ("fsdp", "heads", "head_dim"),
              "wk": ("fsdp", "kv_heads", "head_dim"),
@@ -216,6 +228,7 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, hq, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim)
+        self.q_shape, self.kv_shape = (d, hq, dh), (d, hkv, dh)
         self.wq = _empty((d, hq, dh), device, dtype)
         self.wk = _empty((d, hkv, dh), device, dtype)
         self.wv = _empty((d, hkv, dh), device, dtype)
@@ -235,31 +248,57 @@ class Attention(nn.Module):
             for b in (self.bq, self.bk, self.bv):
                 b.zero_()
 
-    def _q(self, x):
-        q = _proj(x, self.wq)
-        return q + self.bq.to(x.dtype) if self.has_bias else q
+    def _heads(self):
+        """(this rank's q heads, its kv heads, whether the q heads are a
+        share of H)."""
+        q = sh.model_slice(self.SPECS["wq"], self.q_shape, 1)
+        kv = sh.model_slice(self.SPECS["wk"], self.kv_shape, 1)
+        return q, kv, sh.is_split(q, self.cfg.num_heads)
 
-    def project_kv(self, x):
-        """K / V of x (for cross-attention, the encoder states, projected
-        once for all decoder calls)."""
+    def _q(self, xe):
+        q = _proj(xe, self.wq)
+        return q + self.bq.to(xe.dtype) if self.has_bias else q
+
+    def _kv(self, x):
         k, v = _proj(x, self.wk), _proj(x, self.wv)
         if self.has_bias:
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
         return k, v
 
-    def _out(self, o, dtype):
-        return torch.einsum("bshk,hkd->bsd", o, self.wo.to(dtype))
+    def project_kv(self, x, xe=None, heads=None):
+        """K / V of x for this rank's q heads (for cross-attention, the
+        encoder states, projected once for all decoder calls); `xe` is x
+        already through `enter`, `heads` `_heads()`.  Split kv heads:
+        this rank's.  kv heads whole while the q heads split: all of
+        them projected on every rank, then through `enter`, and each of
+        this rank's q heads given its kv head (one kv head a q head)."""
+        qs, kvs, q_split = heads or self._heads()
+        if sh.is_split(kvs, self.cfg.num_kv_heads):
+            return self._kv(sh.enter(x) if xe is None else xe)
+        k, v = self._kv(x)
+        if not q_split:
+            return k, v
+        g = self.cfg.num_heads // self.cfg.num_kv_heads
+        ids = torch.arange(qs.start, qs.stop, device=x.device) // g
+        return sh.enter(k)[:, :, ids], sh.enter(v)[:, :, ids]
+
+    def _out(self, o, dtype, q_split: bool):
+        out = torch.einsum("bshk,hkd->bsd", o, self.wo.to(dtype))
+        return sh.leave(out) if q_split else out
 
     def forward(self, x, positions, *, local: bool = False,
                 causal: bool = True, kv_override=None):
         """Full-sequence attention (training / prefill): the reference's
         `attention`.  kv_override supplies cross-attention keys/values
-        (the encoder states), already projected; q is then not rotated.
+        (the encoder states), already projected (`project_kv`); q is
+        then not rotated.
         """
-        q = self._q(x)
-        k, v = self.project_kv(x)
+        heads = self._heads()
+        xe = sh.enter(x) if heads[2] else x
+        q = self._q(xe)
         if kv_override is None:
+            k, v = self.project_kv(x, xe, heads)
             q = apply_rope(q, positions, self.cfg.rope_theta)
             k = apply_rope(k, positions, self.cfg.rope_theta)
         else:
@@ -267,17 +306,20 @@ class Attention(nn.Module):
         window = self.cfg.window_size if local else 0
         out = _full_attention(q, k, v, self.cfg, causal, window,
                               chunk_ok=q.shape[1] == k.shape[1])
-        return self._out(out, x.dtype)
+        return self._out(out, x.dtype, heads[2])
 
     def prefill(self, x, positions, *, local: bool = False):
         """Causal self-attention that also returns the rotated K / V for
-        the decode cache: the reference's `_attn_prefill`."""
-        q = apply_rope(self._q(x), positions, self.cfg.rope_theta)
-        k, v = self.project_kv(x)
+        the decode cache (this rank's kv heads): the reference's
+        `_attn_prefill`."""
+        heads = self._heads()
+        xe = sh.enter(x) if heads[2] else x
+        q = apply_rope(self._q(xe), positions, self.cfg.rope_theta)
+        k, v = self.project_kv(x, xe, heads)
         k = apply_rope(k, positions, self.cfg.rope_theta)
         window = self.cfg.window_size if local else 0
         out = _full_attention(q, k, v, self.cfg, True, window, chunk_ok=True)
-        return self._out(out, x.dtype), (k, v)
+        return self._out(out, x.dtype, heads[2]), (k, v)
 
     def decode(self, x, cache_k, cache_v, pos: int, *, local: bool = False,
                cross: bool = False):
@@ -285,13 +327,15 @@ class Attention(nn.Module):
         Writes this step's K / V into the caches in place, at `pos`, and
         returns (out [B, 1, d], cache_k, cache_v).  A cross-attention
         cache holds the projected encoder states and is left as it is."""
-        q = self._q(x)
+        heads = self._heads()
+        xe = sh.enter(x) if heads[2] else x
+        q = self._q(xe)
         s = cache_k.shape[1]
         ki = torch.arange(s, device=x.device)
         if cross:
             mask = torch.ones((s,), dtype=torch.bool, device=x.device)
         else:
-            k, v = self.project_kv(x)
+            k, v = self.project_kv(x, xe, heads)
             posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                               device=x.device)
             q = apply_rope(q, posb, self.cfg.rope_theta)
@@ -303,7 +347,7 @@ class Attention(nn.Module):
                 mask &= ki > pos - self.cfg.window_size
         out = _sdpa(q, cache_k, cache_v, mask[None, None, None, None, :],
                     self.cfg)
-        return self._out(out, x.dtype), cache_k, cache_v
+        return self._out(out, x.dtype, heads[2]), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +358,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """swiglu: w_gate, w_up [d, f], w_down [f, d]; gelu (tanh, as
     `jax.nn.gelu`) or relu: w_in [d, f], w_down [f, d].  f is `hidden`,
-    by default `cfg.d_ff` (an MoE's shared expert is wider)."""
+    by default `cfg.d_ff` (an MoE's shared expert is wider); over the
+    model axis, this rank's columns of f."""
 
     SPECS = {"w_gate": ("fsdp", "d_ff"), "w_up": ("fsdp", "d_ff"),
              "w_in": ("fsdp", "d_ff"), "w_down": ("d_ff", "fsdp")}
@@ -324,6 +369,7 @@ class Mlp(nn.Module):
         super().__init__()
         d, f = cfg.d_model, hidden or cfg.d_ff
         self.kind = cfg.mlp_type
+        self.down_shape = (f, d)
         if self.kind == "swiglu":
             self.w_gate = _empty((d, f), device, dtype)
             self.w_up = _empty((d, f), device, dtype)
@@ -338,10 +384,15 @@ class Mlp(nn.Module):
         _draw(self.w_down, g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = sh.is_split(sh.model_slice(
+            self.SPECS["w_down"], self.down_shape, 0), self.down_shape[0])
+        if split:
+            x = sh.enter(x)
         if self.kind == "swiglu":
             h = F.silu(x @ self.w_gate.to(x.dtype)) * (x @ self.w_up.to(x.dtype))
         else:
             h = x @ self.w_in.to(x.dtype)
             h = (F.gelu(h, approximate="tanh") if self.kind == "gelu"
                  else F.relu(h))
-        return h @ self.w_down.to(x.dtype)
+        out = h @ self.w_down.to(x.dtype)
+        return sh.leave(out) if split else out

@@ -27,6 +27,16 @@ Entry points, as the reference's:
   prefill(model, batch, max_len) -> (last logits [B, V], decode states)
   decode_step(model, token, states, pos) -> (logits [B, V], states)
 
+Over the model axis (`sharding.model_slice`; the rules carry `heads`,
+`kv_heads`, `d_ff`, `vocab`, `experts` and `d_inner` on it) each rank
+holds and computes its share of every split leaf: the embedding is a
+vocab-parallel lookup (this rank's rows, zeros for the others' tokens,
+summed over the ranks: exact), `logits_from_hidden` gives this rank's
+vocab columns (the tied embedding's shard is the embedding's),
+`prefill` / `decode_step` gather them into the whole [B, V] logits,
+and the decode states hold this rank's heads and channels.
+`prefix_proj` is not split over model.
+
 Decode states are one dict per layer.  Attention: `k` / `v` [B, max_len,
 Hkv, dh] self-attention caches, and for the encoder-decoder `xk` / `xv`,
 the projected encoder states; `decode_step` writes each step's K / V
@@ -46,6 +56,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as sh
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Attention, Mlp, RmsNorm
@@ -238,6 +249,35 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 
+def vocab_slice(model: Model) -> slice:
+    """This model rank's vocab ids: its rows of the embedding, its
+    columns of the logits (the untied head splits as the embedding
+    does: both have the vocab dim whole or split by the same rule)."""
+    cfg = model.cfg
+    return sh.model_slice(_TOP_SPECS["embed"], (cfg.vocab_size, cfg.d_model),
+                          0)
+
+
+def local_ids(ids: torch.Tensor, vs: slice):
+    """(ids - vs.start clamped into this rank's rows, whether each id is
+    this rank's)."""
+    loc = ids.long() - vs.start
+    width = vs.stop - vs.start
+    return loc.clamp(0, width - 1), (loc >= 0) & (loc < width)
+
+
+def _lookup(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    """The f32 embedding rows of the tokens: over a split vocab each
+    rank's rows for its own ids, zeros elsewhere, summed over the ranks
+    (x + 0 + ... is x: exact)."""
+    vs = vocab_slice(model)
+    if not sh.is_split(vs, model.cfg.vocab_size):
+        return model.embed[tokens].float()
+    loc, mine = local_ids(tokens, vs)
+    rows = torch.where(mine[..., None], model.embed[loc].float(), 0.0)
+    return sh.leave(rows)
+
+
 def _embed_inputs(model: Model, batch) -> torch.Tensor:
     cfg, dt = model.cfg, _dtype(model.cfg)
     parts = []
@@ -248,8 +288,7 @@ def _embed_inputs(model: Model, batch) -> torch.Tensor:
         # the reference scales by a numpy f64 scalar, which promotes the
         # bf16 rows to f32: the decoder's residual stream (and so every
         # product after it) runs in f32 whatever cfg.dtype says
-        parts.append(model.embed[batch["tokens"]].float()
-                     * math.sqrt(cfg.d_model))
+        parts.append(_lookup(model, batch["tokens"]) * math.sqrt(cfg.d_model))
     if len(parts) == 1:
         return parts[0]
     return torch.cat([p.float() for p in parts], dim=1)
@@ -340,6 +379,10 @@ def forward(model: Model, batch) -> torch.Tensor:
 
 
 def logits_from_hidden(model: Model, hidden: torch.Tensor) -> torch.Tensor:
+    """f32 logits of this model rank's vocab columns (`vocab_slice`; all
+    of them without a split), the final softcap applied."""
+    if sh.is_split(vocab_slice(model), model.cfg.vocab_size):
+        hidden = sh.enter(hidden)
     dt = hidden.dtype
     if model.lm_head is None:
         logits = hidden @ model.embed.to(dt).T
@@ -363,7 +406,16 @@ def prefill(model: Model, batch, max_len: int):
             pad = c.new_zeros((c.shape[0], max_len - c.shape[1])
                               + c.shape[2:])
             st[key] = torch.cat([c, pad], dim=1)
-    return logits_from_hidden(model, hidden[:, -1:, :])[:, 0], states
+    return _whole_logits(model, hidden[:, -1:, :])[:, 0], states
+
+
+def _whole_logits(model: Model, hidden: torch.Tensor) -> torch.Tensor:
+    """Every vocab column's logits: the model ranks' columns gathered,
+    so the argmax (ties to the lowest id) is one rank's."""
+    logits = logits_from_hidden(model, hidden)
+    if sh.is_split(vocab_slice(model), model.cfg.vocab_size):
+        logits = sh.model_gather(logits, -1, split_use=True)
+    return logits
 
 
 def decode_step(model: Model, token: torch.Tensor, states, pos: int):
@@ -378,4 +430,4 @@ def decode_step(model: Model, token: torch.Tensor, states, pos: int):
         x, nst, _ = blk(x, positions, mode="decode", state=st, pos=pos)
         new_states.append(nst)
     x = model.final_norm(x)
-    return logits_from_hidden(model, x)[:, 0], new_states
+    return _whole_logits(model, x)[:, 0], new_states

@@ -1,10 +1,17 @@
 """Mixture-of-Experts layer on torch.
 
-The port of `repro.models.moe` where every expert is local (model = 1).
-Under data parallelism (`sharding.use_mesh` over data / pod ranks) each
-rank routes its own rows at the capacity of its own tokens, as the
-reference's `local_tokens` does, and the load-balance and z-loss terms
-are averaged over the batch ranks.  Routing: f32 router
+The port of `repro.models.moe`.  Under data parallelism
+(`sharding.use_mesh` over data / pod ranks) each rank routes its own
+rows at the capacity of its own tokens, as the reference's
+`local_tokens` does, and the load-balance and z-loss terms are averaged
+over the batch ranks.  Over the model axis (expert parallelism, the
+reference's `shard_map` over `model`) the router is replicated, each
+model rank runs its `E / M` experts over its data row's tokens from an
+[E/M, cap] table (the other ranks' pairs sorted last and left out),
+and the partial outputs are summed by `sharding.leave`; x and the top-k
+weights enter the experts through `sharding.enter`, so the router's
+gradient holds every expert's share.  `E % M != 0` raises, as the
+reference does.  Routing: f32 router
 logits, softmax, top-k with ties to the lowest expert id (a stable
 descending sort cut to k: `torch.topk` does not promise that order),
 the top-k weights renormalised with a 1e-9 floor.  Dispatch is the
@@ -115,27 +122,36 @@ def route(p: Moe, x: torch.Tensor):
 
 
 def dispatch(topk_idx: torch.Tensor, topk_w: torch.Tensor, n_experts: int,
-             cap: int, dtype: torch.dtype):
-    """The [E, cap] table of flat token indices (-1 empty), its weights
-    in `dtype`, and each (token, choice) pair's slot e * cap + rank in
-    the table, [..., k] as topk_idx, -1 where the pair was dropped
-    (ranked past cap)."""
+             cap: int, dtype: torch.dtype, experts: slice | None = None):
+    """The [E_loc, cap] table of flat token indices (-1 empty) of the
+    experts `experts` (default: all n_experts), its weights in `dtype`,
+    and each (token, choice) pair's slot e_loc * cap + rank in the
+    table, [..., k] as topk_idx, -1 where the pair went to another
+    rank's expert or was dropped (ranked past cap)."""
+    experts = experts or slice(0, n_experts)
+    e_loc = experts.stop - experts.start
     k = topk_idx.shape[-1]
-    flat_e = topk_idx.reshape(-1)
-    flat_tok = torch.arange(flat_e.numel(), device=flat_e.device) // k
-    order = torch.argsort(flat_e, stable=True)
-    e_sorted = flat_e[order]
+    key = topk_idx.reshape(-1)
+    if e_loc < n_experts:   # other ranks' pairs sort last, to a spare row
+        key = key - experts.start
+        key = torch.where((key >= 0) & (key < e_loc), key, e_loc)
+    flat_tok = torch.arange(key.numel(), device=key.device) // k
+    order = torch.argsort(key, stable=True)
+    e_sorted = key[order]
     rank = run_ranks(e_sorted).long()
     col = torch.clamp(rank, max=cap)           # past capacity: spare column
-    disp = torch.full((n_experts, cap + 1), -1, dtype=torch.int64,
-                      device=flat_e.device)
+    disp = torch.full((e_loc + 1, cap + 1), -1, dtype=torch.int64,
+                      device=key.device)
     disp[e_sorted, col] = flat_tok[order]
-    wdisp = torch.zeros((n_experts, cap + 1), dtype=dtype,
-                        device=flat_e.device)
+    wdisp = torch.zeros((e_loc + 1, cap + 1), dtype=dtype, device=key.device)
     wdisp[e_sorted, col] = topk_w.reshape(-1)[order].to(dtype)
-    slot = torch.where(rank < cap, e_sorted * cap + rank, -1)
+    kept = rank < cap
+    if e_loc < n_experts:
+        kept &= e_sorted < e_loc
+    slot = torch.where(kept, e_sorted * cap + rank, -1)
     slot = torch.empty_like(slot).scatter_(0, order, slot)  # pair order
-    return disp[:, :cap], wdisp[:, :cap], slot.reshape(topk_idx.shape)
+    return disp[:e_loc, :cap], wdisp[:e_loc, :cap], slot.reshape(
+        topk_idx.shape)
 
 
 def _expert_compute(p: Moe, xe: torch.Tensor) -> torch.Tensor:
@@ -159,6 +175,12 @@ def moe(p: Moe, x: torch.Tensor):
     cfg = p.cfg
     e = cfg.moe_num_experts
     b, s, d = x.shape
+    n_model = sh.model_size()
+    if e % n_model:
+        raise ValueError(f"experts {e} must divide over model axis {n_model}")
+    f = p.w_down.shape[1]
+    experts = sh.model_slice(Moe.SPECS["w_gate"], (e, d, f), 0)
+    split = sh.is_split(experts, e)
     logits, probs, topk_w, topk_idx = route(p, x)
 
     # Switch load-balance loss (density by scatter-add) and router
@@ -175,18 +197,29 @@ def moe(p: Moe, x: torch.Tensor):
     z_loss = sh.batch_mean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
 
     n = b * s
-    disp, wdisp, slot = dispatch(topk_idx, topk_w, e, capacity(cfg, n),
-                                 x.dtype)
+    xin, w_in = (sh.enter(x), sh.enter(topk_w)) if split else (x, topk_w)
+    disp, wdisp, slot = dispatch(topk_idx, w_in, e, capacity(cfg, n),
+                                 x.dtype, experts)
+    # the share of pairs past capacity: each rank's over its own
+    # experts' pairs (another rank's are not dropped), summed over the
+    # ranks, which route the same tokens
+    dropped = slot < 0
+    if split:
+        dropped &= (topk_idx >= experts.start) & (topk_idx < experts.stop)
+    dropped = sh.leave(dropped.float().mean())
     xe = torch.where((disp >= 0)[..., None],
-                     x.reshape(n, d)[disp.clamp(min=0)], 0.0)
+                     xin.reshape(n, d)[disp.clamp(min=0)], 0.0)
     ye = (_expert_compute(p, xe) * wdisp[..., None]).reshape(-1, d)
-    # each token's slots in expert-id order (a dropped pair, -1, adds 0)
+    # each token's slots in expert-id order (a dropped pair or another
+    # rank's, -1, adds 0)
     slot = slot.reshape(n, -1).sort(dim=-1).values
     parts = torch.where((slot >= 0)[..., None], ye[slot.clamp(min=0)], 0.0)
     y = parts[:, 0]
     for j in range(1, parts.shape[1]):
         y = y + parts[:, j]
     y = y.reshape(b, s, d)
+    if split:
+        y = sh.leave(y)
     if p.shared is not None:
         y = y + p.shared(x)
-    return y, MoeAux(lb_loss, z_loss, (slot < 0).float().mean())
+    return y, MoeAux(lb_loss, z_loss, dropped)

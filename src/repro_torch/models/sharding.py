@@ -21,6 +21,16 @@ the same model code runs on one device.  Inside one, `batch_sum` is the
 all-reduce over the batch axes that the data-parallel loss needs where
 the reference's GSPMD sees the whole batch (the cross-entropy's sums,
 the MoE load-balance terms).
+
+The model axis (tensor and expert parallelism) is carried out by hand,
+where the reference leaves it to GSPMD: each model rank holds its share
+of a model-split parameter (`model_slice` gives the index range of it)
+and computes with it; `enter` marks a replicated tensor that feeds a
+model-split computation (identity; its backward all-reduces the
+gradient over the model group), `leave` sums the ranks' partial outputs
+(all-reduce; its backward passes the gradient through), and
+`model_gather` all-gathers a split tensor.  With a model group of size 1
+every one of them returns its input.
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: dict | None = None
+        # model_slice's resolutions under this (mesh, rules)
+        self.slices: dict = {}
 
 
 _CTX = _Ctx()
@@ -77,28 +89,24 @@ def _merged(rules: dict | None) -> dict:
 def use_mesh(mesh, rules: dict | None = None):
     """(mesh, DEFAULT_RULES updated by `rules`) for this thread, for the
     block."""
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = mesh, _merged(rules)
-    try:
+    with restored((mesh, _merged(rules), {})):
         yield
-    finally:
-        _CTX.mesh, _CTX.rules = prev
 
 
 def context() -> tuple:
-    """This thread's (mesh, rules), for `restored`."""
-    return _CTX.mesh, _CTX.rules
+    """This thread's (mesh, rules, resolutions), for `restored`."""
+    return _CTX.mesh, _CTX.rules, _CTX.slices
 
 
 @contextlib.contextmanager
 def restored(ctx: tuple):
-    """The (mesh, rules) of `context()` on this thread, for the block."""
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = ctx
+    """The context of `context()` on this thread, for the block."""
+    prev = context()
+    _CTX.mesh, _CTX.rules, _CTX.slices = ctx
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.slices = prev
 
 
 def current_mesh():
@@ -202,15 +210,11 @@ def spec_tree_to_shardings(mesh, spec_tree, shape_tree=None,
     `NamedSharding`s.  With `shape_tree` (the same structure, leaves
     with `.shape`), mesh axes that do not divide a dim are dropped from
     it."""
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = mesh, _merged(rules)
-    try:
+    with use_mesh(mesh, rules):
         return _map_tree(
             lambda axes, leaf: NamedSharding(mesh, _resolve(
                 tuple(axes), None if leaf is None else tuple(leaf.shape))),
             spec_tree, shape_tree)
-    finally:
-        _CTX.mesh, _CTX.rules = prev
 
 
 # -- placement ---------------------------------------------------------------
@@ -372,3 +376,133 @@ def batch_gather(x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
+
+
+# -- the model axis -------------------------------------------------------------
+
+
+def model_size() -> int:
+    """The size of the model axis (1 outside a mesh)."""
+    return axis_size("model")
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the model axis (0 outside a mesh)."""
+    return _CTX.mesh.coordinate["model"] if model_size() > 1 else 0
+
+
+def model_group():
+    """The process group over the model axis (None where it has size
+    1)."""
+    return _CTX.mesh.group("model") if model_size() > 1 else None
+
+
+def model_slice(logical_axes: tuple, shape: tuple, dim: int) -> slice:
+    """The index range, on `dim`, of this model rank's share of a leaf
+    of `logical_axes` and whole `shape`: the rules resolved with the
+    shape-aware fallback (a dim that does not divide is whole), the
+    model axis alone kept, and `local_slices` of that spec.  The whole
+    range outside a mesh or where the model axis does not split `dim`.
+    A layer reads whether its leaves split from here, never from the
+    axis size alone."""
+    if model_size() == 1:
+        return slice(0, shape[dim])
+    key = (logical_axes, shape, dim)
+    got = _CTX.slices.get(key)
+    if got is None:
+        spec = tuple(
+            "model" if "model" in ((e,) if isinstance(e, str) else e or ())
+            else None for e in _resolve(logical_axes, shape))
+        start, stop, _ = local_slices(_CTX.mesh, spec, shape)[dim].indices(
+            shape[dim])
+        got = _CTX.slices[key] = slice(start, stop)
+    return got
+
+
+def is_split(s: slice, n: int) -> bool:
+    """Whether `s` (a `model_slice`) is a share of a dim of size n."""
+    return s.stop - s.start < n
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity; the backward all-reduces (sums) the gradient over the
+    group: each rank's model-split computation gives only its share of
+    the gradient of a replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """x, a tensor every model rank holds whole, into a model-split
+    computation: identity forward, gradient summed over the model ranks
+    in the backward."""
+    if model_size() == 1:
+        return x
+    return _ReduceGrad.apply(x, model_group())
+
+
+def leave(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model ranks of each rank's partial x (a
+    row-parallel product, a masked lookup); the backward passes the
+    gradient through, since every rank then computes the same loss."""
+    if model_size() == 1:
+        return x
+    return _SumOver.apply(x, model_group())
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of x over the model ranks (no gradient)."""
+    if model_size() == 1:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=model_group())
+    return y
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather of each rank's block along `dim`, in model-rank order
+    (the group's rank order: the device mesh's coordinate).  The
+    backward gives this rank its block of the gradient: summed over the
+    ranks (a reduce-scatter) where each rank uses its own part of the
+    gathered tensor (`split_use`), taken from its own copy where every
+    rank computes the same thing from it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank, split_use):
+        ctx.dim, ctx.group, ctx.n, ctx.split_use = dim, group, n, split_use
+        ctx.rank = rank
+        x0 = x.movedim(dim, 0).contiguous()
+        out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
+        dist.all_gather_into_tensor(out, x0, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g0 = g.movedim(ctx.dim, 0).contiguous()
+        w = g0.shape[0] // ctx.n
+        if ctx.split_use:
+            part = g0.new_empty((w,) + tuple(g0.shape[1:]))
+            dist.reduce_scatter_tensor(part, g0, group=ctx.group)
+        else:
+            part = g0[ctx.rank * w:(ctx.rank + 1) * w]
+        return (part.movedim(0, ctx.dim).contiguous(), None, None, None,
+                None, None)
+
+
+def model_gather(x: torch.Tensor, dim: int, split_use: bool) -> torch.Tensor:
+    """The whole tensor from each model rank's block of it along `dim`
+    (see `_GatherModel` for `split_use`); x itself at model size 1."""
+    n = model_size()
+    if n == 1:
+        return x
+    return _GatherModel.apply(x, dim % x.dim(), model_group(), n,
+                              model_rank(), split_use)

@@ -13,6 +13,16 @@ at jamba's widths.
 Decode keeps (h [B, di, N] f32, conv [B, d_conv - 1, di]) and costs
 O(1) a token.  `Mamba` holds the parameters in the reference's shapes
 and dtypes; the functions take it as the reference's take `p`.
+
+Over the model axis each rank runs its share of the d_inner channels
+(`sharding.model_slice`): conv, dt_proj, dt_bias, A_log and D are its
+channels', x_proj and out_proj are row-parallel (`sharding.leave`; the
+[B, S, r + 2N] of x_proj then enters the channel products again), and
+the states are [B, di / M, N] and [B, d_conv - 1, di / M].  in_proj is
+[d, 2 di], x then z, split on that concatenated axis in contiguous
+pieces (at M = 2 rank 0 holds all of x, rank 1 all of z): the weight is
+all-gathered over the model ranks and this rank's x and z columns are
+taken from it (its gradient reduce-scattered back to the shards).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _draw, _empty
 
@@ -120,14 +131,56 @@ def _dt(p: Mamba, dt_r: torch.Tensor, dtype) -> torch.Tensor:
     return F.softplus((dt_r @ p.dt_proj.to(dtype)).float() + p.dt_bias)
 
 
+def _channels(p: Mamba) -> tuple:
+    """(this rank's d_inner channels, whether they are a share)."""
+    di = p.cfg.d_inner
+    ch = sh.model_slice(Mamba.SPECS["conv_b"], (di,), 0)
+    return ch, sh.is_split(ch, di)
+
+
+def _in_proj(p: Mamba, x: torch.Tensor):
+    """(x_in, z) of this rank's channels: x passes `enter` where the
+    channels split; a split in_proj is gathered (for split use where
+    the channels split, for the whole layer on every rank where they do
+    not) and this rank's x and z columns taken from it."""
+    cfg, dt = p.cfg, x.dtype
+    di = cfg.d_inner
+    ch, split = _channels(p)
+    w = p.in_proj
+    shape = (cfg.d_model, 2 * di)
+    if sh.is_split(sh.model_slice(Mamba.SPECS["in_proj"], shape, 1), 2 * di):
+        w = sh.model_gather(w, 1, split_use=split)
+    if split:
+        x = sh.enter(x)
+        w = torch.cat([w[:, ch], w[:, di + ch.start:di + ch.stop]], dim=1)
+    return (x @ w.to(dt)).chunk(2, dim=-1)
+
+
+def _x_proj(p: Mamba, x_c: torch.Tensor):
+    """(dt_r, B, C): row-parallel over split channels, summed by `leave`
+    and entering the channel products again."""
+    r, n = p.cfg.dt_rank, p.cfg.mamba_d_state
+    out = x_c @ p.x_proj.to(x_c.dtype)
+    if _channels(p)[1]:
+        out = sh.enter(sh.leave(out))
+    return out.split([r, n, n], dim=-1)
+
+
+def _out_proj(p: Mamba, y: torch.Tensor) -> torch.Tensor:
+    out = y @ p.out_proj.to(y.dtype)
+    return sh.leave(out) if _channels(p)[1] else out
+
+
 def mamba_with_state(p: Mamba, x: torch.Tensor, h0=None, conv0=None,
                      chunk: int = 256):
     """x: [B, S, d] -> (out [B, S, d], (h, conv_state)), from the state
     (h0, conv0) or from zeros."""
     cfg, dt = p.cfg, x.dtype
     b, s, _ = x.shape
-    di, n, r, dc = cfg.d_inner, cfg.mamba_d_state, cfg.dt_rank, cfg.mamba_d_conv
-    x_in, z = (x @ p.in_proj.to(dt)).chunk(2, dim=-1)
+    n, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    ch, _ = _channels(p)
+    di = ch.stop - ch.start
+    x_in, z = _in_proj(p, x)
     w, bias = p.conv_w.to(dt), p.conv_b.to(dt)
     if conv0 is not None:
         x_cat = torch.cat([conv0.to(dt), x_in], dim=1)
@@ -135,7 +188,7 @@ def mamba_with_state(p: Mamba, x: torch.Tensor, h0=None, conv0=None,
     else:
         x_c = _causal_conv(x_in, w, bias)
     x_c = F.silu(x_c)
-    dt_r, bmat, cmat = (x_c @ p.x_proj.to(dt)).split([r, n, n], dim=-1)
+    dt_r, bmat, cmat = _x_proj(p, x_c)
     delta = _dt(p, dt_r, dt)                                  # [B, S, di]
     A = -torch.exp(p.A_log)                                   # [di, N]
     dA = torch.exp(delta[..., None] * A)                      # [B, S, di, N]
@@ -147,23 +200,23 @@ def mamba_with_state(p: Mamba, x: torch.Tensor, h0=None, conv0=None,
     del dA, dBx
     y = y.to(dt) + x_c * p.D.to(dt)
     y = y * F.silu(z)
-    out = y @ p.out_proj.to(dt)
+    out = _out_proj(p, y)
     conv_state = x_in[:, -(dc - 1):, :] if s >= dc - 1 else x_in
     return out, (h, conv_state)
 
 
 def mamba_decode(p: Mamba, x: torch.Tensor, state):
     """One-token step. x: [B, 1, d]; state = (h [B, di, N], conv
-    [B, dc - 1, di]).  Returns (out [B, 1, d], new state)."""
-    cfg, dt = p.cfg, x.dtype
+    [B, dc - 1, di]), this rank's channels.  Returns (out [B, 1, d],
+    new state)."""
+    dt = x.dtype
     h, conv_state = state
-    n, r = cfg.mamba_d_state, cfg.dt_rank
-    x_in, z = (x @ p.in_proj.to(dt)).chunk(2, dim=-1)         # [B, 1, di]
+    x_in, z = _in_proj(p, x)                                  # [B, 1, di]
     window = torch.cat([conv_state.to(dt), x_in], dim=1)      # [B, dc, di]
     x_c = torch.einsum("bti,ti->bi", window, p.conv_w.to(dt)) \
         + p.conv_b.to(dt)
     x_c = F.silu(x_c)[:, None, :]                             # [B, 1, di]
-    dt_r, bmat, cmat = (x_c @ p.x_proj.to(dt)).split([r, n, n], dim=-1)
+    dt_r, bmat, cmat = _x_proj(p, x_c)
     delta = _dt(p, dt_r, dt)[:, 0]                            # [B, di]
     A = -torch.exp(p.A_log)
     dA = torch.exp(delta[..., None] * A)                      # [B, di, N]
@@ -173,5 +226,4 @@ def mamba_decode(p: Mamba, x: torch.Tensor, state):
     y = torch.einsum("bdn,bn->bd", h, cmat[:, 0].float()).to(dt)
     y = (y + x_c[:, 0] * p.D.to(dt))[:, None, :]
     y = y * F.silu(z)
-    out = y @ p.out_proj.to(dt)
-    return out, (h, window[:, 1:, :])
+    return _out_proj(p, y), (h, window[:, 1:, :])

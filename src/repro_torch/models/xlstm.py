@@ -12,6 +12,25 @@ States, as the reference's tuples:
   sLSTM: (c [B, H, dh], n [B, H, dh], h [B, H, dh], m [B, H, dh])
 The initial m is -1e30 and the sLSTM's initial n 1e-6, as the
 reference's, so the first `exp` terms match.
+
+Over the model axis (`sharding.model_slice`):
+  mLSTM: wq / wk / wv split their d columns (`heads`), up_proj its 4d
+    (x branch, then gate) and down_proj its 2d rows (`d_inner`).  A rank
+    runs the heads its q / k / v columns touch (where a shard cuts a
+    head, q / k / v are all-gathered and the head is run by each rank
+    that holds a piece of it), and the read-out's 2d channels of its
+    down_proj rows; channel c reads h[c mod d], so h is all-gathered
+    from each rank's columns.  up_proj is split on its concatenated
+    axis in contiguous pieces: gathered, and this rank's x and gate
+    columns taken.  The gates (`w_if`, `b_i`, `b_f`, not split) are
+    computed whole on every rank and enter the heads' products.
+  sLSTM: w_gates / b_gates [d, 4d] lay each head's i, f, z, o side by
+    side (the pre-activations reshape to [.., H, 4 dh]), so a split on
+    whole heads is head-local, as r_gates' split on `heads`; the heads'
+    h are all-gathered for out_proj, which is not split.  Where the heads
+    do not divide while 4d does, the split w_gates / b_gates are
+    gathered and the layer runs whole on every rank.
+The states hold this rank's heads.
 """
 
 from __future__ import annotations
@@ -22,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _draw, _empty
 
@@ -111,6 +131,15 @@ def _heads(x: torch.Tensor, hn: int) -> torch.Tensor:
     return x.reshape(b, s, hn, d // hn).transpose(1, 2)  # [B, H, S, dh]
 
 
+def _gathered_cols(w: torch.Tensor, spec: tuple, n: int, split_use: bool):
+    """A [*, n] weight whose last dim the model axis may split: gathered
+    whole where it does (see `sharding.model_gather`), else itself."""
+    full = tuple(w.shape[:-1]) + (n,)
+    if sh.is_split(sh.model_slice(spec, full, w.dim() - 1), n):
+        return sh.model_gather(w, -1, split_use)
+    return w
+
+
 def mlstm_with_state(p: MLstm, x: torch.Tensor, state=None,
                      chunk: int = 256):
     """x: [B, S, d] -> ([B, S, d], state), from `state` or the initial
@@ -119,19 +148,40 @@ def mlstm_with_state(p: MLstm, x: torch.Tensor, state=None,
     b, s, d = x.shape
     hn = cfg.num_heads
     dh = d // hn
-    x_br, z = (x @ p.up_proj.to(dt)).chunk(2, dim=-1)   # [B, S, 2d]
-    q = _heads(x @ p.wq.to(dt), hn)
+    cols = sh.model_slice(MLstm.SPECS["wq"], (d, d), 1)      # q / k / v
+    chans = sh.model_slice(MLstm.SPECS["down_proj"], (2 * d, d), 0)
+    heads_split, chans_split = sh.is_split(cols, d), sh.is_split(chans, 2 * d)
+    h0, h1 = cols.start // dh, -(-cols.stop // dh)            # heads run
+    xe = sh.enter(x) if chans_split else x
+    # this rank's channels of the x branch and of the gate
+    w_up = _gathered_cols(p.up_proj, MLstm.SPECS["up_proj"], 4 * d,
+                          chans_split)
+    if chans_split:
+        w_up = torch.cat([w_up[:, chans],
+                          w_up[:, 2 * d + chans.start:2 * d + chans.stop]], 1)
+    x_br, z = (xe @ w_up.to(dt)).chunk(2, dim=-1)
+    # q / k / v of the heads this rank runs: from its own columns, whole
+    # heads; all-gathered where a shard cuts a head
+    xq = xe if heads_split else x
+    q, k, v = (xq @ w.to(dt) for w in (p.wq, p.wk, p.wv))
+    if heads_split and (cols.start % dh or cols.stop % dh):
+        q, k, v = (sh.model_gather(t, -1, split_use=True)[
+            ..., h0 * dh:h1 * dh] for t in (q, k, v))
+    hl = h1 - h0
+    q = _heads(q, hl)
     # the reference divides by a numpy f64 scalar, which promotes bf16
-    k = _heads(x @ p.wk.to(dt), hn).float() / math.sqrt(dh)
-    v = _heads(x @ p.wv.to(dt), hn)
-    gates = x.float() @ p.w_if.float()
-    li = (gates[..., :hn] + p.b_i).transpose(1, 2)            # [B, H, S]
-    lf = F.logsigmoid(gates[..., hn:] + p.b_f).transpose(1, 2)
+    k = _heads(k, hl).float() / math.sqrt(dh)
+    v = _heads(v, hl)
+    gates = x.float() @ p.w_if.float() + torch.cat([p.b_i, p.b_f])
+    if heads_split:
+        gates = sh.enter(gates)
+    li = gates[..., h0:h1].transpose(1, 2)                   # [B, H, S]
+    lf = F.logsigmoid(gates[..., hn + h0:hn + h1]).transpose(1, 2)
     if state is None:
         f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((b, hn, dh, dh), **f32),
-                 torch.zeros((b, hn, dh), **f32),
-                 torch.full((b, hn), -1e30, **f32))
+        state = (torch.zeros((b, hl, dh, dh), **f32),
+                 torch.zeros((b, hl, dh), **f32),
+                 torch.full((b, hl), -1e30, **f32))
     qn = min(chunk, s)
     if s % qn:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {qn}")
@@ -142,12 +192,20 @@ def mlstm_with_state(p: MLstm, x: torch.Tensor, state=None,
                                 v[:, :, sl].float(), li[..., sl], lf[..., sl],
                                 state)
         hs.append(h)
-    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, d)
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, hl * dh)
+    # every feature of h, from each rank's columns; or, heads whole on
+    # every rank, h entering the split channels
+    if heads_split:
+        h = sh.model_gather(h[..., cols.start - h0 * dh:cols.stop - h0 * dh],
+                            -1, split_use=chans_split)
+    elif chans_split:
+        h = sh.enter(h)
     # GLU-style read-out: h modulates the up-projected branch, gated by
-    # silu(z); h repeats (2d // d) times along the features
-    out = x_br * F.silu(z)
-    out = out * torch.cat([h.to(dt)] * (out.shape[-1] // d), dim=-1)
-    return out @ p.down_proj.to(dt), state
+    # silu(z); channel c of the 2d reads h[c mod d]
+    hh = torch.cat([h.to(dt)] * 2, dim=-1)
+    out = x_br * F.silu(z) * (hh[..., chans] if chans_split else hh)
+    out = out @ p.down_proj.to(dt)
+    return (sh.leave(out) if chans_split else out), state
 
 
 def mlstm_decode(p: MLstm, x: torch.Tensor, state):
@@ -193,10 +251,18 @@ def slstm_with_state(p: SLstm, x: torch.Tensor, state=None):
     b, s, d = x.shape
     hn = cfg.num_heads
     dh = d // hn
-    pre_x = (x.float() @ p.w_gates.float() + p.b_gates.float()).reshape(
-        b, s, hn, 4 * dh)
+    heads = sh.model_slice(SLstm.SPECS["r_gates"], (hn, dh, 4 * dh), 0)
+    split = sh.is_split(heads, hn)
+    hl = heads.stop - heads.start
+    w, bias = p.w_gates, p.b_gates
+    if not split:   # heads whole: any split of 4d gathered
+        w = _gathered_cols(w, SLstm.SPECS["w_gates"], 4 * d, False)
+        bias = _gathered_cols(bias, SLstm.SPECS["b_gates"], 4 * d, False)
+    xin = sh.enter(x) if split else x
+    pre_x = (xin.float() @ w.float() + bias.float()).reshape(
+        b, s, hl, 4 * dh)
     if state is None:
-        zero = torch.zeros((b, hn, dh), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((b, hl, dh), dtype=torch.float32, device=x.device)
         state = (zero, zero + 1e-6, zero, zero - 1e30)  # c, n, h, m
     c, n, h, m = state
     r = p.r_gates.float()
@@ -213,7 +279,9 @@ def slstm_with_state(p: SLstm, x: torch.Tensor, state=None):
         h = torch.sigmoid(ot) * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    out = torch.stack(hs, dim=1).reshape(b, s, hl * dh).to(x.dtype)
+    if split:   # out_proj is not split: every rank runs it whole
+        out = sh.model_gather(out, -1, split_use=False)
     return out @ p.out_proj.to(x.dtype), (c, n, h, m)
 
 

@@ -28,11 +28,20 @@ over the ranks, and an int8 state whose blocks a shard cuts is
 (de)quantized over whole blocks, so its codes are one rank's.  Without
 a mesh (`Zero3(model, None)`, one device) nothing is split or
 reduced, and the step computes what `make_train_step`'s does.
+
+Tensor and expert parallelism (the `model` axis): the gather leaves
+each model-split parameter as this rank's model shard, the layers
+compute their share (`models.sharding`: `enter` / `leave` around the
+split products, a vocab-parallel cross-entropy here), a shard's
+gradient is whole over the model ranks, so `reduce` runs over the
+batch axes only, and the gradient norm counts each leaf's copies over
+the whole world.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -53,11 +62,19 @@ class TrainHParams:
 
 
 def _xent_chunk(model: M.Model, h: torch.Tensor, lab: torch.Tensor):
-    """(sum of the chunk's nll, its count of valid labels as int32)."""
-    logits = M.logits_from_hidden(model, h)          # [B, chunk, V] f32
-    lse = torch.logsumexp(logits, dim=-1)
-    safe = torch.clamp(lab, min=0).long()
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    """(sum of the chunk's nll, its count of valid labels as int32).
+    Vocab-parallel: each model rank's logsumexp of its columns, combined
+    over the ranks from their max (the sum of exp(lse_r - max) summed by
+    `leave`), and the gold logit from the rank that holds the label.  At
+    one rank the combination adds log(exp(0)) = 0: the same bits as the
+    plain logsumexp, and a gradient multiplied by exactly 1."""
+    logits = M.logits_from_hidden(model, h)          # [B, chunk, V / M] f32
+    lse_r = torch.logsumexp(logits, dim=-1)
+    top = sh.model_max(lse_r.detach())
+    lse = top + torch.log(sh.leave(torch.exp(lse_r - top)))
+    loc, mine = M.local_ids(lab, M.vocab_slice(model))
+    gold = torch.gather(logits, -1, loc[..., None])[..., 0]
+    gold = sh.leave(torch.where(mine, gold, 0.0))
     valid = lab >= 0
     nll = torch.where(valid, lse - gold, 0.0)
     return torch.sum(nll), torch.sum(valid, dtype=torch.int32)
@@ -193,9 +210,12 @@ class Zero3:
     `mesh` (a `launch.mesh.NamedMesh`, or None for one device, where
     nothing is split): `shards[name]` is this rank's shard of each
     parameter (the parameter itself where no axis of size > 1 splits
-    it).  Between steps the model's split parameters hold no storage;
-    `gather()` fills them and `release()` frees them.  Only the batch
-    axes may split a parameter (the model axis is not ported)."""
+    it), over the batch axes (ZeRO-3) and the model axis (tensor and
+    expert parallelism) alike.  Between steps the model's split
+    parameters hold no storage; `gather()` fills each with this rank's
+    model shard (the batch-axis splits gathered: the layers compute on
+    the model shard, `sharding.model_slice`), `gather(whole=True)` with
+    the whole parameter, and `release()` frees them."""
 
     def __init__(self, model: M.Model, mesh, rules: dict | None = None):
         self.mesh, self.rules = mesh, rules
@@ -205,18 +225,22 @@ class Zero3:
         self.shardings = sh.spec_tree_to_shardings(mesh, self.specs,
                                                    self.params, rules)
         with sh.use_mesh(mesh, rules):
-            self.group, self.dp = sh.batch_group()
+            _, self.dp = sh.batch_group()
             self.batch_axes = sh.batch_axes()
-        self.split, self.shards, self.shapes = {}, {}, {}
+        self.world = 1 if mesh is None else math.prod(mesh.shape.values())
+        self.split, self.batch_split, self.shards, self.shapes = \
+            {}, {}, {}, {}
         for name, p in self.params.items():
             spec = self.shardings[name].spec
             split = sh.split_axes(mesh, spec)
             for _, axes in split:
-                if not set(axes) <= set(self.batch_axes):
-                    raise ValueError(f"{name}: split over {axes}, beyond the "
-                                     f"batch axes {self.batch_axes} (the "
-                                     "model axis is ROADMAP 1 item 8e.6)")
+                if set(axes) & set(self.batch_axes) and \
+                        not set(axes) <= set(self.batch_axes):
+                    raise ValueError(f"{name}: one dim split over batch and "
+                                     f"other axes {axes}")
             self.split[name], self.shapes[name] = split, tuple(p.shape)
+            self.batch_split[name] = [(d, axes) for d, axes in split
+                                      if set(axes) <= set(self.batch_axes)]
             self.shards[name] = p.detach()[sh.local_slices(
                 mesh, spec, p.shape)].clone() if split else p
         self.release()
@@ -228,24 +252,27 @@ class Zero3:
                 p.data = p.data.new_empty((0,))
 
     @torch.no_grad()
-    def gather(self) -> None:
-        """Fill the model's split parameters from the shards."""
+    def gather(self, whole: bool = False) -> None:
+        """Fill the model's split parameters from the shards: this
+        rank's model shard of each, or with `whole` every parameter
+        whole (a model to return or to run outside the mesh)."""
         for name, p in self.params.items():
             if self.split[name]:
-                p.data = _gather(self.shards[name], self.split[name],
-                                 self.mesh)
+                p.data = _gather(self.shards[name], self.split[name] if whole
+                                 else self.batch_split[name], self.mesh)
 
     def reduce(self, grads: dict) -> dict:
-        """Each rank's gradients of its share of the loss -> this rank's
-        shard of their sum over the batch ranks (f32 where a collective
-        runs; the gradient as it is at one rank)."""
+        """Each rank's gradients of its share of the loss (a model
+        shard's gradient is already whole over the model ranks) -> this
+        rank's shard of their sum over the batch ranks (f32 where a
+        collective runs; the gradient as it is at one batch rank)."""
         if self.dp == 1:
             return grads
         out = {}
         for name, g in grads.items():
             g = g.to(torch.float32)
             used = set()
-            for d, axes in self.split[name]:
+            for d, axes in self.batch_split[name]:
                 x = g.movedim(d, 0).contiguous()
                 n = self.mesh.size(axes)
                 part = torch.empty((x.shape[0] // n,) + x.shape[1:],
@@ -263,18 +290,20 @@ class Zero3:
 
     def grad_norm(self, grads: dict) -> torch.Tensor:
         """The norm of the whole (reduced) gradient from this rank's
-        shards: each shard's sum of squares weighted by the share of
-        the ranks that hold a copy of it, summed over the batch ranks."""
-        if self.dp == 1:
+        shards: each shard's sum of squares over the number of ranks
+        that hold a copy of it, summed over the whole world (a leaf the
+        model axis splits counts each rank's share, a replicated one
+        once)."""
+        if self.world == 1:
             return opt.global_norm(grads)
         total = 0
         for name, g in grads.items():
-            copies = self.dp
+            copies = self.world
             for _, axes in self.split[name]:
                 copies //= self.mesh.size(axes)
             total = total + torch.sum(torch.square(g.to(torch.float32))) \
                 / copies
-        dist.all_reduce(total, group=self.group)
+        dist.all_reduce(total, group=self.mesh.group(tuple(self.mesh.shape)))
         return torch.sqrt(total)
 
     # -- the optimizer state on the shards --
@@ -373,14 +402,14 @@ class Zero3:
 
 
 class _Int8Moments:
-    """int8 moments under data parallelism.  A leaf whose codes and
-    scales shard as its parameter does (the split dims leading, the
-    parameter's last dim whole) dequantizes and quantizes its own
-    blocks.  Otherwise a shard cuts the 256-blocks (the parameter's
-    last-axis rule lands on the block axis): the codes are gathered and
-    dequantized whole, and the new moments gathered and quantized
-    whole, so the absmax of each block is the whole block's and the
-    codes equal one rank's bit for bit."""
+    """int8 moments on shards.  A leaf whose codes and scales shard as
+    its parameter does (the split dims leading, the parameter's last dim
+    whole) dequantizes and quantizes its own blocks.  Otherwise a shard
+    cuts the 256-blocks (the parameter's last-axis rule, over a batch
+    axis or the model axis alike, lands on the block axis): the codes
+    are gathered and dequantized whole, and the new moments gathered
+    and quantized whole, so the absmax of each block is the whole
+    block's and the codes equal one rank's bit for bit."""
 
     def __init__(self, zero: Zero3, cfg: opt.OptConfig):
         self.zero, self.cfg = zero, cfg
@@ -426,9 +455,10 @@ class _Int8Moments:
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptConfig,
                             zero: Zero3, hp: TrainHParams = TrainHParams()):
     """Returns step(model, opt_state, rows) -> (opt_state, metrics) for
-    this rank's rows of the global batch (`sharding.batch_rows`); the
-    state is `zero.init_opt_state`'s shards, the metrics the global
-    batch's (the same on every rank)."""
+    this rank's rows of the global batch (`sharding.batch_rows`; the
+    model ranks of a data row take the same rows); the state is
+    `zero.init_opt_state`'s shards, the metrics the global batch's (the
+    same on every rank)."""
     loss_fn = make_loss_fn(cfg, hp)
     moments = zero.moments(opt_cfg)
 

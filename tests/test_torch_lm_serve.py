@@ -52,7 +52,9 @@ def test_serve_driver_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_serve_driver_refuses_a_mesh():
-    with pytest.raises(ValueError, match="must be 1"):
+    """A model axis of 2 needs a process group of 2 ranks (torchrun),
+    which one process is not."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         serve.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
                     "--mesh-model", "2"])
 

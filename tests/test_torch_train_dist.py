@@ -46,9 +46,10 @@ reference run in JAX subprocesses on forced host devices:
     from D = 1 to D = 2 and back as close to a straight run;
   * `launch.serve --mesh-data 2`: the one-rank greedy tokens, and on the
     reference's weights the reference's tokens;
-  * refusals: `--mesh-model 2`, naming ROADMAP 8e.6; a batch that does
-    not divide over D; a period count that does not divide over the
-    stages.
+  * refusals: `--mesh-model 2` in one process asks for torchrun, as
+    `--mesh-data 2` does; experts that do not divide over the model
+    axis raise, as the reference's `moe` does; a batch that does not
+    divide over D; a period count that does not divide over the stages.
 """
 
 from __future__ import annotations
@@ -286,7 +287,7 @@ def runs(tmp_path_factory):
         cases[name] = (params, batches)
     sp = init_params(j_get_config("gemma2-2b", smoke=True))
     np.savez(os.path.join(tmp, "serve.npz"), **flat(sp, "params/"))
-    int8 = int8_inputs()
+    int8 = worker.int8_inputs()
     np.savez(os.path.join(tmp, "int8.npz"), **int8)
 
     refs = {
@@ -323,25 +324,6 @@ def runs(tmp_path_factory):
         out["ref_" + name] = dict(np.load(os.path.join(tmp, f"{name}.npz"))) \
             if name != "elastic" else None
     out["ckpt_d2"] = ckpt_d2
-    return out
-
-
-def int8_inputs() -> dict:
-    """Parameters, gradients and an int8 state (from random moments) of
-    gemma2 smoke in f32, for the sharded int8 update."""
-    rng = np.random.default_rng(5)
-    model = M.Model(worker.f32("gemma2-2b"), device="meta")
-    ocfg = opt.OptConfig(state_dtype="int8")
-    out = {}
-    for n, p in model.named_parameters():
-        shape = tuple(p.shape)
-        out[f"p/{n}"] = rng.standard_normal(shape).astype(np.float32)
-        out[f"g/{n}"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
-        m = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        v = torch.from_numpy(np.abs(rng.standard_normal(shape))
-                             .astype(np.float32) * 1e-3)
-        for k, t in opt.quantized_moments(m * 1e-2, v, ocfg).items():
-            out[f"mu/{n}/{k}"] = t.numpy()
     return out
 
 
@@ -714,11 +696,23 @@ def test_refusals(runs):
             out["refused/serve"])
         assert "does not split over --mesh-data 2" in str(
             out["refused/train"])
-    for mod in (train_mod, serve_mod):
-        with pytest.raises(ValueError, match="ROADMAP 1 item 8e.6"):
-            mod.parse_args(["--arch", "gemma2-2b", "--smoke", "--device",
-                            "cpu", "--mesh-model", "2"])
+    # the model axis needs a process group of D x M ranks, which one
+    # process is not
     with pytest.raises(RuntimeError, match="torchrun"):
-        train_mod.run(train_mod.parse_args(
-            worker.RESUME_ARGV + ["--mesh-data", "2", "--steps", "1"]),
-            cfg=worker.resume_cfg())
+        serve_mod.run(serve_mod.parse_args(worker.SERVE_ARGV + [
+            "--mesh-model", "2"]))
+    for flag in ("--mesh-data", "--mesh-model"):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train_mod.run(train_mod.parse_args(
+                worker.RESUME_ARGV + [flag, "2", "--steps", "1"]),
+                cfg=worker.resume_cfg())
+    # deepseek smoke's 8 experts over a model axis of 3, as the
+    # reference's `moe` refuses them (the mesh's shape is all that is
+    # read before the refusal: no collective runs)
+    cfg = worker.f32("deepseek-moe-16b")
+    model = M.init_model(cfg, 0, device="cpu")
+    three = types.SimpleNamespace(shape={"data": 1, "model": 3},
+                                  coordinate={"data": 0, "model": 0})
+    with pytest.raises(ValueError, match="experts 8 must divide over model "
+                       "axis 3"), sh.use_mesh(three), torch.no_grad():
+        M.forward(model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

@@ -61,10 +61,7 @@ def test_resume_without_checkpoint_starts_at_zero(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--mesh-data", "--mesh-model"])
 def test_mesh_flags_refused(flag):
-    """The model axis is refused (ROADMAP 1 item 8e.6); the data axis
-    needs a process group of that many ranks, which one process is
-    not."""
-    err, match = (ValueError, "8e.6") if flag == "--mesh-model" \
-        else (RuntimeError, "torchrun")
-    with pytest.raises(err, match=match):
+    """Either axis needs a process group of that many ranks (torchrun),
+    which one process is not."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_mod.main(ARGS + ["--steps", "1", flag, "2"])

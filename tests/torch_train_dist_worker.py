@@ -16,7 +16,14 @@ The jobs:
     under (2, 4);
   * `train`: data-parallel training steps on the reference's weights
     and batches, the int8 update on shards, the resident bytes, resumes
-    across a change of D, and data-parallel serving.
+    across a change of D, and data-parallel serving;
+  * `model_axis` (tests/test_torch_model_axis.py), at world 2 on a
+    (1, 2) mesh, at world 4 on (2, 2) and (1, 4): training steps,
+    forwards and serving over the model axis on the cases' weights (in
+    the reference's layout, `case_<name>.npz`), each rank's share of
+    the work (`record_shares`), the int8
+    update on shards a model split cuts, the resident bytes, and
+    resumes across (1, 2) <-> (2, 1).
 
 This module imports torch and the port only, never jax.
 """
@@ -34,7 +41,7 @@ from torch_dist_worker import free_port
 
 from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
@@ -194,6 +201,25 @@ GROUP_AXES = [("pod",), ("data",), ("model",), ("pod", "data"),
               ("pod", "model"), ("data", "model"), ("pod", "data", "model")]
 
 
+def int8_inputs() -> dict:
+    """Parameters, gradients and an int8 state (from random moments) of
+    gemma2 smoke in f32, for the sharded int8 update."""
+    rng = np.random.default_rng(5)
+    model = M.Model(f32("gemma2-2b"), device="meta")
+    ocfg = opt.OptConfig(state_dtype="int8")
+    out = {}
+    for n, p in model.named_parameters():
+        shape = tuple(p.shape)
+        out[f"p/{n}"] = rng.standard_normal(shape).astype(np.float32)
+        out[f"g/{n}"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        m = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        v = torch.from_numpy(np.abs(rng.standard_normal(shape))
+                             .astype(np.float32) * 1e-3)
+        for k, t in opt.quantized_moments(m * 1e-2, v, ocfg).items():
+            out[f"mu/{n}/{k}"] = t.numpy()
+    return out
+
+
 def _resident(zero: ts.Zero3, state: dict) -> np.ndarray:
     """(bytes of parameter storage this rank holds, bytes of its
     optimizer state)."""
@@ -262,7 +288,7 @@ def _int8_update(kw: dict, mesh) -> dict:
                                     moments=moments)
     out = {"int8/whole": np.asarray(sorted(moments.whole)),
            "int8/grad_norm": m["grad_norm"].numpy()}
-    zero.gather()
+    zero.gather(whole=True)
     for n, p in model.named_parameters():
         out[f"int8/param/{n}"] = p.detach().numpy()
     for n, leaves in zero.full_state(state, ocfg)["mu"].items():
@@ -312,8 +338,223 @@ def _job_train(kw: dict) -> dict:
     return out
 
 
+# -- the model axis ------------------------------------------------------------
+
+# the model-axis cases: (arch, overrides of its smoke config), in f32
+MODEL_CASES = {**{a: (a, {}) for a in ARCH_NAMES},
+               # jamba's period of 8 cut to its first two layers
+               # (attention + MLP, mamba + MoE): its training step's
+               # compile in the reference is a quarter of the whole's
+               "jamba-2layers": ("jamba-v0.1-52b", dict(num_layers=2,
+                                                         scan_period=2)),
+               # mLSTM's q / k / v shards hold half a head at M = 4
+               "xlstm-2heads": ("xlstm-1.3b", dict(num_heads=2,
+                                                    num_kv_heads=2,
+                                                    head_dim=32)),
+               # 6 heads do not divide over M = 4 (the attention runs
+               # whole on every rank) while d_ff does
+               "starcoder2-6heads": ("starcoder2-7b", dict(num_heads=6))}
+MODEL_TRAIN = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-2layers",
+                        "xlstm-1.3b"),
+               (2, 2): ("gemma2-2b", "deepseek-moe-16b"),
+               # gemma2's 2 kv heads stay whole while its 4 q heads split
+               (1, 4): ("gemma2-2b", "xlstm-2heads", "starcoder2-6heads")}
+MODEL_FORWARD = {(1, 2): ARCH_NAMES,
+                 (1, 4): ("gemma2-2b", "xlstm-2heads", "starcoder2-6heads")}
+MODEL_SERVE = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
+                        "xlstm-1.3b"),
+               (2, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
+                        "xlstm-1.3b")}
+MODEL_SERVE_ARGV = ["--smoke", "--device", "cpu", "--batch", "4",
+                    "--prompt-len", "12", "--gen", "6"]
+
+
+def case_cfg(name: str):
+    arch, over = MODEL_CASES[name]
+    return dataclasses.replace(f32(arch), **over)
+
+
+def record_shares(out: dict, key: str):
+    """Forward hooks and wrappers that record, per call, the width of
+    the work this rank does: q heads and kv heads attended, MLP hidden
+    columns, mamba channels, logits columns, experts run and the rows
+    of their table.  Returns the function that removes them."""
+    from repro_torch.models import layers, moe, ssm
+    from repro_torch.models.layers import Attention, Mlp
+
+    seen = {}
+
+    def note(name, value):
+        seen.setdefault(name, set()).add(int(value))
+
+    real = (layers._sdpa, moe._expert_compute, ssm._ssm_scan_chunked,
+            M.logits_from_hidden)
+
+    def sdpa(q, k, v, mask, cfg):
+        note("q_heads", q.shape[2])
+        note("kv_heads", k.shape[2])
+        return real[0](q, k, v, mask, cfg)
+
+    def experts(p, xe):
+        note("experts", xe.shape[0])
+        note("expert_rows", xe.shape[0] * xe.shape[1])
+        return real[1](p, xe)
+
+    def scan(dA, dBx, C, h0, chunk):
+        note("mamba_channels", dA.shape[2])
+        return real[2](dA, dBx, C, h0, chunk)
+
+    def logits(model, hidden):
+        lg = real[3](model, hidden)
+        note("logit_columns", lg.shape[-1])
+        return lg
+
+    hooks = []
+    layers._sdpa, moe._expert_compute, ssm._ssm_scan_chunked = \
+        sdpa, experts, scan
+    M.logits_from_hidden = logits
+
+    def mlp_hook(mod, args, result):
+        note("mlp_columns", mod.w_down.shape[0])
+
+    def attn_hook(mod, args, result):
+        note("wq_heads", mod.wq.shape[1])
+
+    def install(model):
+        for mod in model.modules():
+            if isinstance(mod, Mlp):
+                hooks.append(mod.register_forward_hook(mlp_hook))
+            elif isinstance(mod, Attention):
+                hooks.append(mod.register_forward_hook(attn_hook))
+
+    def remove():
+        layers._sdpa, moe._expert_compute, ssm._ssm_scan_chunked = real[:3]
+        M.logits_from_hidden = real[3]
+        for h in hooks:
+            h.remove()
+        for name, vals in seen.items():
+            out[f"{key}/{name}"] = np.asarray(sorted(vals))
+
+    return install, remove
+
+
+def _model_train(kw: dict, mesh, tag: str, names) -> dict:
+    """2 steps of each case on its weights and the reference's batches: the
+    metrics, the whole parameters after, each rank's share of the work
+    in the first forward and its resident bytes."""
+    out = {}
+    for name in names:
+        d = dict(np.load(os.path.join(kw["inputs"], f"case_{name}.npz")))
+        cfg = case_cfg(name)
+        model = convert.model_from(tree_of(d, "params/"), cfg, device="cpu")
+        ocfg = opt.OptConfig(**OPT)
+        zero = ts.Zero3(model, mesh)
+        state = zero.init_opt_state(ocfg)
+        out[f"{tag}/{name}/resident"] = _resident(zero, state)
+        step = ts.make_sharded_train_step(cfg, ocfg, zero, HP)
+        for i in range(TRAIN_STEPS):
+            batch = {k[len(f"batch{i}/"):]: torch.from_numpy(v)
+                     for k, v in d.items() if k.startswith(f"batch{i}/")}
+            with sh.use_mesh(mesh):
+                rows = {k: sh.batch_rows(v) for k, v in batch.items()}
+            if i == 0:
+                install, remove = record_shares(out, f"{tag}/{name}/share")
+                install(model)
+            try:
+                state, m = step(model, state, rows)
+            finally:
+                if i == 0:
+                    remove()
+            for k in ("loss", "xent", "lb_loss", "z_loss", "grad_norm",
+                      "tokens"):
+                out[f"{tag}/{name}/step{i}/{k}"] = m[k].numpy()
+        zero.gather(whole=True)
+        for n, p in model.named_parameters():
+            out[f"{tag}/{name}/param/{n}"] = p.detach().numpy()
+    return out
+
+
+def _model_forward(kw: dict, mesh, tag: str, names) -> dict:
+    """Each case's whole logits of its first batch, each rank computing
+    its share."""
+    out = {}
+    for name in names:
+        d = dict(np.load(os.path.join(kw["inputs"], f"case_{name}.npz")))
+        model = convert.model_from(tree_of(d, "params/"), case_cfg(name),
+                                   device="cpu")
+        zero = ts.Zero3(model, mesh)
+        zero.gather()
+        batch = {k[len("batch0/"):]: torch.from_numpy(v) for k, v in d.items()
+                 if k.startswith("batch0/") and k != "batch0/labels"}
+        with torch.no_grad(), sh.use_mesh(mesh):
+            hidden = M.forward(model, batch)
+            out[f"{tag}/{name}/logits"] = M._whole_logits(
+                model, hidden).numpy()
+    return out
+
+
+def _model_serve(kw: dict, tag: str, data: int, model_n: int,
+                 names) -> dict:
+    """`launch.serve` under --mesh-data / --mesh-model on the case's
+    f32 weights: the whole batch's greedy tokens."""
+    out = {}
+    for name in names:
+        d = dict(np.load(os.path.join(kw["inputs"], f"case_{name}.npz")))
+        model = convert.model_from(tree_of(d, "params/"), case_cfg(name),
+                                   device="cpu")
+        out[f"{tag}/{name}/serve"] = serve_mod.run(serve_mod.parse_args(
+            ["--arch", MODEL_CASES[name][0]] + MODEL_SERVE_ARGV + [
+                "--mesh-data", str(data), "--mesh-model", str(model_n)]),
+            model=model, log=lambda s: None)
+    return out
+
+
+def _job_model_axis(kw: dict) -> dict:
+    out = {}
+    world = dist.get_world_size()
+    layouts = [(1, 2)] if world == 2 else [(2, 2), (1, 4)]
+    for data, model_n in layouts:
+        mesh = mesh_mod.make_lm_mesh(data, model_n, device="cpu")
+        tag = f"{data}x{model_n}"
+        out[f"{tag}/coords"] = np.asarray([mesh.coordinate["data"],
+                                           mesh.coordinate["model"]])
+        out.update(_model_train(kw, mesh, tag, MODEL_TRAIN[(data, model_n)]))
+        out.update(_model_forward(kw, mesh, tag,
+                                  MODEL_FORWARD.get((data, model_n), ())))
+        out.update(_model_serve(kw, tag, data, model_n,
+                                MODEL_SERVE.get((data, model_n), ())))
+        if (data, model_n) == (1, 2):
+            out.update({f"{tag}/{k}": v for k, v in
+                        _int8_update(kw, mesh).items()})
+    if world == 2:
+        out.update(_resume_layouts(kw))
+    return out
+
+
+def _resume_layouts(kw: dict) -> dict:
+    """launch.train 2 steps under (1, 2) then to 4 under (2, 1), and
+    the other way round, each resuming the other's checkpoint."""
+    cfg = resume_cfg()
+    out = {}
+    for tag, first, second in (("m2d2", "--mesh-model", "--mesh-data"),
+                               ("d2m2", "--mesh-data", "--mesh-model")):
+        ck = os.path.join(kw["ckpt_root"], tag)
+        train_mod.run(train_mod.parse_args(
+            RESUME_ARGV + [first, "2", "--steps", "2", "--ckpt-dir", ck]),
+            cfg=cfg, log=lambda s: None)
+        lines = []
+        model, _ = train_mod.run(train_mod.parse_args(
+            RESUME_ARGV + [second, "2", "--steps", "4", "--ckpt-dir", ck,
+                           "--resume"]), cfg=cfg, log=lines.append)
+        out[f"{tag}/lines"] = np.asarray(lines)
+        for n, p in model.named_parameters():
+            out[f"{tag}/param/{n}"] = p.detach().numpy()
+    return out
+
+
 JOBS = dict(compress=_job_compress, pipeline=_job_pipeline,
-            elastic=_job_elastic, train=_job_train)
+            elastic=_job_elastic, train=_job_train,
+            model_axis=_job_model_axis)
 
 
 def _entry(rank: int, world: int, port: int, job: str, outdir: str,
