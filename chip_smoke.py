@@ -274,6 +274,16 @@ failure:
      forward, gradient cosine > 0.999); serve_mesh (`launch.serve
      --mesh-data 1 --mesh-model 1`, gemma2-2b whole, 8 x 64 + 8, tokens
      equal the one-device `generate`'s);
+ 18. [dryrun] (after phase 17 has destroyed its NCCL group: the dry run
+     opens a fake process group of its own; no kernel of the six,
+     checked): `launch.dryrun.run_cell` on train_gemma2's cell (gemma2-2b
+     whole, 4 x 4096, loss chunk 512, remat, fp32 state, mesh (1, 1)),
+     stepped on the meta device: its argument bytes equal phase 16's
+     bf16 params + fp32 state + batch exactly, its FLOPs are within 0.5 %
+     of `train_flops`' total, its peak within 10 % of phase 16's
+     measured peak (the signed gap printed); then one production cell,
+     gemma2-2b decode_32k as rank 0 of a fake (16, 16) world, its
+     record's summary line;
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -518,24 +528,33 @@ def tree_bytes(tree) -> int:
 
 def train_flops(cfg, b: int, s: int) -> tuple[dict, dict]:
     """The fp32 operations of one remat train step at [b, s], term by
-    term: (those the step needs, those the port adds).  Needed: 6 N T
-    (forward and backward of every product, the tied logits included)
-    and causal attention's two products (2 x 2 b H S^2 dh a layer
-    forward, half of it unmasked; x 3 with the backward).  Added: the
-    remat's second forward over the layers (2 N_layers T) and over the
-    loss chunks (2 V d T), attention's in that second forward (4 b H
-    S^2 dh L, unmasked as the port computes it), and the masked half of
-    attention in the forward and backward (6 b H S^2 dh L)."""
-    from repro_torch.models.config import count_params
+    term: (those the step needs, those the port adds).  N counts the
+    parameters that enter a product (the matrices; the norms' weights
+    scale elementwise).  Needed: 6 N T (forward and backward of every
+    product, the tied logits included) and causal attention's two
+    products (2 x 2 b H S^2 dh a layer forward, half of it unmasked; x 3
+    with the backward).  Added: the remat's second forward over the
+    layers and over the loss chunks (2 V d T), attention's in that
+    second forward (4 b H S^2 dh L, unmasked as the port computes it),
+    and the masked half of attention in the forward and backward (6 b H
+    S^2 dh L).  The layers' second forward is 2 N_layers T less each
+    period's last product, its last layer's w_down (2 d_ff d T a
+    period): the non-reentrant checkpoint stops recomputing after the
+    last tensor the backward saved, and that product's output is none.
+    The sum equals the dry run's count of the step
+    (`launch.dryrun`, phase 18) exactly."""
+    from repro_torch.models import model as lm
 
     t = b * s
-    n = count_params(cfg)
+    n = sum(p.numel() for p in lm.Model(cfg, device="meta").parameters()
+            if p.dim() >= 2)
     n_embed = cfg.vocab_size * cfg.d_model
-    n_layers = n - n_embed * (1 if cfg.tie_embeddings else 2) \
-        - 2 * cfg.d_model
+    n_layers = n - n_embed * (1 if cfg.tie_embeddings else 2)
+    periods = cfg.num_layers // cfg.scan_period
     bhs = float(b * cfg.num_heads * s * s * cfg.head_dim * cfg.num_layers)
     need = {"6NT": 6.0 * n * t, "causal attention 6 b H S^2 dh L": 6 * bhs}
-    extra = {"remat layers 2 N_layers T": 2.0 * n_layers * t,
+    extra = {"remat layers 2 (N_layers - P d_ff d) T":
+             2.0 * (n_layers - periods * cfg.d_ff * cfg.d_model) * t,
              "remat loss 2 V d T": 2.0 * n_embed * t,
              "remat attention 4 b H S^2 dh L": 4 * bhs,
              "masked attention half 6 b H S^2 dh L": 6 * bhs}
@@ -690,7 +709,8 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
         peak = torch.cuda.max_memory_allocated()
         ms = [m for m, _ in steps]
         med = float(np.median(ms[1:]))
-        readings = {"steps": steps, "peak": peak, "median_ms": med}
+        readings = {"steps": steps, "peak": peak, "median_ms": med,
+                    "p_bytes": p_bytes, "s_bytes": s_bytes}
         xents = [m["xent"] for _, m in steps]
         opt_host = [h for h, _ in opt_times[1:]]
         opt_dev = [e[0].elapsed_time(e[1]) for _, e in opt_times[1:]]
@@ -712,6 +732,7 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
         # one more step, traced, its host syncs counted
         batch = tok.make_batch(gemma, tok.DataConfig(seed=seed), 6, B, S,
                                device=dev)
+        readings["batch_bytes"] = tree_bytes(batch)
         syncs = []
 
         def traced_step():
@@ -1215,6 +1236,64 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     del model
     tdist.destroy_process_group()
     log(f"[train_mesh] phase 17 in {time.perf_counter() - wall:.1f} s")
+
+
+# -- 18. [dryrun]: the dry run against phase 16's step --------------------
+
+# the production cell phase 18 steps in a fake world of 256 ranks
+DRYRUN_CELL = ("gemma2-2b", "decode_32k")
+
+
+def dryrun_phase(p16: dict, smi: str) -> None:
+    """Phase 18 [dryrun]: `launch.dryrun`'s counts of train_gemma2's step
+    (built on the meta device, rank 0 of a fake one-rank world) held
+    against what phase 16 measured on the card and against
+    `train_flops`, then one production cell.  Raises on a failed check."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.train import train_step as ts
+
+    wall = time.perf_counter()
+    B, S, CHUNK = TRAIN_SHAPE
+    if ts.TrainHParams().loss_chunk != CHUNK:
+        raise AssertionError("the dry run's loss chunk is not phase 16's")
+    rec = dryrun.run_cell("gemma2-2b", ShapeSpec("train_gemma2", S, B,
+                                                 "train"),
+                          False, mesh_shape=(1, 1))
+    mem, flops = rec["memory"], rec["cost"]["flops"]
+    want_args = p16["p_bytes"] + p16["s_bytes"] + p16["batch_bytes"]
+    need, extra = train_flops(get_config("gemma2-2b"), B, S)
+    want_flops = sum(need.values()) + sum(extra.values())
+    flops_gap = flops / want_flops - 1.0
+    peak_gap = mem["peak_bytes"] / p16["peak"] - 1.0
+    log(f"[dryrun] train_gemma2 on the meta device, mesh (1, 1): "
+        f"{dryrun.summary(rec)}; {rec['aten_ops']} aten ops")
+    log(f"[dryrun] argument bytes {mem['argument_bytes']} vs phase 16's "
+        f"bf16 params {p16['p_bytes']} + fp32 state {p16['s_bytes']} + "
+        f"batch {p16['batch_bytes']} = {want_args} "
+        f"({'equal' if mem['argument_bytes'] == want_args else 'DIFFERENT'})"
+        f"; FLOPs {flops} vs train_flops' {want_flops:.0f} "
+        f"({flops_gap * 100:+.4f} %, limit 0.5 %); peak {mem['peak_bytes']} "
+        f"(temp {mem['temp_bytes']}) vs phase 16's measured "
+        f"{p16['peak']} ({peak_gap * 100:+.2f} %, limit 10 %); the card's "
+        f"memory {rec['device_memory_bytes']} ({smi})")
+    arch, shape = DRYRUN_CELL
+    prod = dryrun.run_cell(arch, shape, False)
+    log(f"[dryrun] {arch} {shape} rank 0 of (16, 16), computed on the meta "
+        f"device: {dryrun.summary(prod)}; wire bytes by op "
+        f"{prod['collectives']['bytes_by_op']}, counts "
+        f"{prod['collectives']['counts']}")
+    if mem["argument_bytes"] != want_args:
+        raise AssertionError(f"dryrun: argument bytes {mem['argument_bytes']}"
+                             f" != phase 16's {want_args}")
+    if abs(flops_gap) > 0.005:
+        raise AssertionError(f"dryrun: FLOPs {flops} are {flops_gap:+.4%} "
+                             f"from train_flops' {want_flops:.0f}")
+    if abs(peak_gap) > 0.10:
+        raise AssertionError(f"dryrun: peak {mem['peak_bytes']} is "
+                             f"{peak_gap:+.2%} from phase 16's {p16['peak']}")
+    log(f"[dryrun] phase 18 in {time.perf_counter() - wall:.1f} s")
 
 
 def main() -> int:
@@ -4165,6 +4244,15 @@ def main() -> int:
         raise AssertionError(f"train_mesh: launched an index kernel "
                              f"{dict(ops.LAUNCHES)}")
     log(f"[launches] train_mesh (phase 17, not a kernel path): "
+        f"{dict(ops.LAUNCHES)}")
+
+    # -- 18. [dryrun]: the dry run against phase 16's step ---------------
+    ops.reset_launches()
+    dryrun_phase(p16, smi)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"dryrun: launched an index kernel "
+                             f"{dict(ops.LAUNCHES)}")
+    log(f"[launches] dryrun (phase 18, not a kernel path): "
         f"{dict(ops.LAUNCHES)}")
 
     # -- 13. kernels line ---------------------------------------------------

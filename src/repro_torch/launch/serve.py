@@ -151,7 +151,7 @@ def run(args: argparse.Namespace, model: M.Model | None = None,
             rows = {k: sh.batch_rows(v) for k, v in batch.items()}
             toks = generate(model, rows, steps=args.gen, max_len=max_len,
                             seed=args.seed)
-            toks = sh.batch_gather(toks).cpu().numpy()
+            toks = sh.batch_gather(toks, args.batch).cpu().numpy()
     finally:
         zero.gather(whole=True)
     dt = sp.duration_s

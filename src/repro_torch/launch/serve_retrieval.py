@@ -224,6 +224,29 @@ def run_openloop(args, obs=None) -> dict:
     return dict(out, control=control)
 
 
+# the capacity probe: timed passes of one full batch, at least
+# PROBE_PASSES of them and for at least PROBE_S seconds (at most
+# PROBE_MAX_PASSES); one batch's service time is their PROBE_PCT-th
+# percentile
+PROBE_PASSES, PROBE_S, PROBE_MAX_PASSES, PROBE_PCT = 10, 0.5, 200, 90
+
+
+def _service_time(meter, wq) -> tuple:
+    """(one batch's service time in seconds, every pass's seconds), from
+    passes spread over PROBE_S.  A mean over a few passes can fall in a
+    quiet moment of a loaded host, and then offers the runs after it
+    more than they serve; a high percentile follows a host that slows
+    often, while one slow pass in ten moves it little."""
+    passes = []
+    end = time.perf_counter() + PROBE_S
+    while len(passes) < PROBE_MAX_PASSES and (
+            len(passes) < PROBE_PASSES or time.perf_counter() < end):
+        t0 = time.perf_counter()
+        meter.search(wq)
+        passes.append(time.perf_counter() - t0)
+    return float(np.percentile(passes, PROBE_PCT)), passes
+
+
 def _openloop_modes(args, backend, emb) -> dict:
     """`run_openloop`'s runs on this process's backend: warm-up, the
     capacity probe, then the schedule at sync and pipelined depth."""
@@ -248,14 +271,11 @@ def _openloop_modes(args, backend, emb) -> dict:
                                 queue_capacity=args.queue_capacity,
                                 cache=False))
     meter.search(wq)  # one untimed pass
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        meter.search(wq)
-    svc = (time.perf_counter() - t0) / reps
+    svc, passes = _service_time(meter, wq)
     capacity = args.max_batch / svc
     rate = args.rate if args.rate > 0 else 0.5 * capacity
-    print(f"[openloop] batch service {svc * 1e3:.2f} ms "
+    print(f"[openloop] batch service {svc * 1e3:.2f} ms (p{PROBE_PCT} of "
+          f"{len(passes)} passes, median {np.median(passes) * 1e3:.2f} ms) "
           f"-> capacity ~{capacity:.0f} qps; offered rate {rate:.0f} qps")
 
     rows = np.random.default_rng(args.seed + 1).integers(

@@ -351,25 +351,51 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     return x if n == 1 else batch_sum(x) / n
 
 
+def _rows_split(rows: int) -> tuple:
+    """(group, n): the ranks that a batch of `rows` rows splits over,
+    as the reference's `_batch_sharding` places it.  The batch axes
+    where the rows divide over them; else the pod and data axes (a
+    preset whose batch axes take `model` too); a one-row batch, or one
+    whose fallback axes have one rank, is whole on every rank (None,
+    1).  Raises where the rows divide over neither."""
+    group, n = batch_group()
+    if n == 1 or rows % n == 0:
+        return group, n
+    if rows == 1:
+        return None, 1
+    mesh = _CTX.mesh
+    axes = tuple(a for a in ("pod", "data")
+                 if a in mesh.shape and mesh.shape[a] > 1)
+    m = 1
+    for a in axes:
+        m *= mesh.shape[a]
+    if axes != batch_axes() and rows % m == 0:
+        return (mesh.group(axes), m) if m > 1 else (None, 1)
+    raise ValueError(f"a batch of {rows} rows does not split over {n} "
+                     f"data-parallel ranks")
+
+
 def batch_rows(x: torch.Tensor) -> torch.Tensor:
     """This rank's rows of a global batch tensor: the batch ranks take
     equal blocks of rows in rank order, as the reference's `batch` axis
-    shards them.  Raises where the rows do not divide."""
-    group, n = batch_group()
+    shards them (`_rows_split`: a one-row batch is every rank's, as the
+    reference replicates it).  Raises where the rows do not divide.  A
+    row held by r ranks enters the loss's sums r times over and so does
+    its count: `batch_sum` / `batch_mean` give the same mean."""
+    group, n = _rows_split(x.shape[0])
     if n == 1:
         return x
-    if x.shape[0] % n:
-        raise ValueError(f"a batch of {x.shape[0]} rows does not split over "
-                         f"{n} data-parallel ranks")
     w = x.shape[0] // n
     i = dist.get_rank(group)
     return x[i * w:(i + 1) * w]
 
 
-def batch_gather(x: torch.Tensor) -> torch.Tensor:
-    """The global batch from each rank's rows (`batch_rows`' inverse),
-    on every rank."""
-    group, n = batch_group()
+def batch_gather(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """The global batch of `rows` rows from each rank's rows
+    (`batch_rows`' inverse: gathered over the ranks `_rows_split` split
+    them over, x itself where every rank holds them whole), on every
+    rank."""
+    group, n = _rows_split(rows)
     if n == 1:
         return x
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -382,7 +408,13 @@ def batch_gather(x: torch.Tensor) -> torch.Tensor:
 
 
 def model_size() -> int:
-    """The size of the model axis (1 outside a mesh)."""
+    """The size of the model axis (1 outside a mesh, and where the
+    rules put `model` among the batch axes, as the zero3 presets do:
+    the model ranks then hold other rows, and `train_step.Zero3`
+    gathers a leaf that `model` splits whole, as it gathers any batch
+    split, so no layer computes a model share)."""
+    if "model" in batch_axes():
+        return 1
     return axis_size("model")
 
 

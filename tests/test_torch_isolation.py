@@ -44,8 +44,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     # layers, model, moe, ssm, unroll and xlstm, configs + shapes and the
     # ten arch files, train + optimizer and train_step, data.tokens,
     # checkpoint + checkpoint, launch.train; models.sharding,
-    # train.compression and train.pipeline
-    assert int(n) >= 76
+    # train.compression and train.pipeline; launch.dryrun
+    assert int(n) >= 77
     assert lm.strip() == str(
         ["repro_torch.configs"]
         + [f"repro_torch.configs.{m}" for m in (
@@ -187,12 +187,14 @@ TRAIN_PROBE = textwrap.dedent("""
 def test_training_modules_and_example_import_without_jax():
     """The training stack (`models/unroll.py`, `train/optimizer.py`,
     `train/train_step.py`, `data/tokens.py`, `checkpoint/checkpoint.py`,
-    `launch/train.py`) and `examples/torch_train_lm.py` load with jax
-    unimportable and pull in nothing of `repro`; none of their sources
-    names jax or the JAX package in an import."""
+    `launch/train.py`), the dry run (`launch/dryrun.py`) and
+    `examples/torch_train_lm.py` load with jax unimportable and pull in
+    nothing of `repro`; none of their sources names jax or the JAX
+    package in an import."""
     names = ["repro_torch.models.unroll", "repro_torch.train.optimizer",
              "repro_torch.train.train_step", "repro_torch.data.tokens",
-             "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train"]
+             "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train",
+             "repro_torch.launch.dryrun"]
     example = os.path.join(os.path.dirname(SRC), "examples",
                            "torch_train_lm.py")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -34,6 +34,9 @@ port's one rank:
     mamba channels, logits columns, experts and their table rows, half
     of one rank's at (1, 2); resident parameter and state bytes those
     the specs give;
+  * training under the zero3 preset at (1, 2), gemma2 and deepseek
+    (the batch split over data and model, no model share in a layer):
+    2 steps within the limits above of one rank's;
   * the int8 update on shards a model split cuts equals one rank's bit
     for bit; resumes (1, 2) -> (2, 1) and back as close as a straight
     run;
@@ -363,6 +366,27 @@ def test_training_matches_the_reference_and_one_rank(runs, tag, name):
     check_training(runs, tag, name)
     if name == "deepseek-moe-16b":
         assert float(runs["ref"][f"{tag}/{name}/step0/lb_loss"]) > 0
+
+
+@pytest.mark.parametrize("name", worker.MODEL_ZERO3)
+def test_zero3_training_matches_one_rank(runs, name):
+    """The zero3 preset at (1, 2): its batch axes take `model`, so the
+    two ranks train on other rows of the batch and no layer computes a
+    model share (`sharding.model_size` is 1) of the weights Zero3
+    gathers whole.  2 steps held against the port's one rank at the
+    limits above."""
+    metrics, model, _ = one_rank(runs, name)
+    want = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    pre = f"1x2zero3/{name}"
+    for out in runs["1x2"]:
+        for i in range(worker.TRAIN_STEPS):
+            for k in ("loss", "xent", "lb_loss", "grad_norm"):
+                got, exp = float(out[f"{pre}/step{i}/{k}"]), metrics[i][k]
+                assert abs(got - exp) <= 5e-5 * max(abs(exp), 1.0), \
+                    (name, i, k, got, exp)
+            assert int(out[f"{pre}/step{i}/tokens"]) == metrics[i]["tokens"]
+        params_close({n: out[f"{pre}/param/{n}"] for n in want}, want,
+                     {n: 1e-4 for n in want})
 
 
 @pytest.mark.parametrize("tag,name", FORWARD)

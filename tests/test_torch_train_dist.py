@@ -471,7 +471,10 @@ def test_elastic_restore_of_the_reference_checkpoint(runs):
 def test_pod_data_model_mesh_groups_and_batch_rows(runs):
     """`make_lm_mesh(2, 2, pod=2)` at world 8: rank = pod * 4 + data * 2
     + model; each set of axes' group holds the ranks that share this
-    rank's other coordinates; the batch rows go by (pod, data)."""
+    rank's other coordinates; the batch rows go by (pod, data), and
+    `batch_gather` undoes `batch_rows` also where a one-row batch is
+    whole and where zero3's (pod, data, model) falls back to (pod,
+    data)."""
     for rank, out in enumerate(runs["elastic"]):
         p, d, m = rank // 4, rank // 2 % 2, rank % 2
         coords = [(pp, dd, mm) for pp in (0, 1) for dd in (0, 1)
@@ -485,6 +488,14 @@ def test_pod_data_model_mesh_groups_and_batch_rows(runs):
         i = 2 * p + d
         assert out["batch_rows"].tolist() == [2 * i, 2 * i + 1]
         assert out["batch_gather"].tolist() == list(range(8))
+        # a one-row batch whole on every rank, and gathered back whole
+        assert out["one_row/rows"].tolist() == [0]
+        assert out["one_row/gather"].tolist() == [0]
+        # zero3's batch axes: 8 rows one a rank; 4 rows by (pod, data)
+        assert out["zero3/8/rows"].tolist() == [rank]
+        assert out["zero3/4/rows"].tolist() == [i]
+        for rows in (8, 4):
+            assert out[f"zero3/{rows}/gather"].tolist() == list(range(rows))
 
 
 def test_elastic_restore_of_the_ports_own_save(runs):

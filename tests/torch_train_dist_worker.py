@@ -23,7 +23,12 @@ The jobs:
     the reference's layout, `case_<name>.npz`), each rank's share of
     the work (`record_shares`), the int8
     update on shards a model split cuts, the resident bytes, and
-    resumes across (1, 2) <-> (2, 1).
+    resumes across (1, 2) <-> (2, 1);
+  * `dryrun` (tests/test_torch_dryrun.py), at world 2 on a (1, 2) mesh
+    and at world 4 on (2, 2): one real train step of each
+    `DRYRUN_ARCHS` case under `launch.dryrun.StepCounter` (its FLOPs,
+    collective counts and bytes, for the dry run's cell of that rank),
+    and at world 4 a one-row batch, which every data rank runs whole.
 
 This module imports torch and the port only, never jax.
 """
@@ -42,6 +47,7 @@ from torch_dist_worker import free_port
 from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.data import tokens as tok
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
@@ -193,7 +199,21 @@ def _job_elastic(kw: dict) -> dict:
     with sh.use_mesh(c):
         out["batch_rows"] = sh.batch_rows(torch.arange(8)).numpy()
         out["batch_gather"] = sh.batch_gather(
-            sh.batch_rows(torch.arange(8))).numpy()
+            sh.batch_rows(torch.arange(8)), 8).numpy()
+        # a one-row batch is every rank's whole
+        out["one_row/rows"] = sh.batch_rows(torch.arange(1)).numpy()
+        out["one_row/gather"] = sh.batch_gather(
+            sh.batch_rows(torch.arange(1)), 1).numpy()
+    # the zero3 preset's batch axes (pod, data, model): 8 rows split
+    # over all 8 ranks, 4 rows fall back to (pod, data)
+    from repro_torch.launch.dryrun import RULE_PRESETS
+
+    with sh.use_mesh(c, RULE_PRESETS["zero3"]):
+        for rows in (8, 4):
+            x = torch.arange(rows)
+            out[f"zero3/{rows}/rows"] = sh.batch_rows(x).numpy()
+            out[f"zero3/{rows}/gather"] = sh.batch_gather(
+                sh.batch_rows(x), rows).numpy()
     return out
 
 
@@ -359,6 +379,9 @@ MODEL_TRAIN = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-2layers",
                (2, 2): ("gemma2-2b", "deepseek-moe-16b"),
                # gemma2's 2 kv heads stay whole while its 4 q heads split
                (1, 4): ("gemma2-2b", "xlstm-2heads", "starcoder2-6heads")}
+# trained at (1, 2) under the zero3 preset too: its batch axes take
+# `model`, so the two ranks hold other rows and no layer splits heads
+MODEL_ZERO3 = ("gemma2-2b", "deepseek-moe-16b")
 MODEL_FORWARD = {(1, 2): ARCH_NAMES,
                  (1, 4): ("gemma2-2b", "xlstm-2heads", "starcoder2-6heads")}
 MODEL_SERVE = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
@@ -438,24 +461,25 @@ def record_shares(out: dict, key: str):
     return install, remove
 
 
-def _model_train(kw: dict, mesh, tag: str, names) -> dict:
-    """2 steps of each case on its weights and the reference's batches: the
-    metrics, the whole parameters after, each rank's share of the work
-    in the first forward and its resident bytes."""
+def _model_train(kw: dict, mesh, tag: str, names, rules=None) -> dict:
+    """2 steps of each case on its weights and the reference's batches
+    under the sharding `rules` (None: the default rules): the metrics,
+    the whole parameters after, each rank's share of the work in the
+    first forward and its resident bytes."""
     out = {}
     for name in names:
         d = dict(np.load(os.path.join(kw["inputs"], f"case_{name}.npz")))
         cfg = case_cfg(name)
         model = convert.model_from(tree_of(d, "params/"), cfg, device="cpu")
         ocfg = opt.OptConfig(**OPT)
-        zero = ts.Zero3(model, mesh)
+        zero = ts.Zero3(model, mesh, rules)
         state = zero.init_opt_state(ocfg)
         out[f"{tag}/{name}/resident"] = _resident(zero, state)
         step = ts.make_sharded_train_step(cfg, ocfg, zero, HP)
         for i in range(TRAIN_STEPS):
             batch = {k[len(f"batch{i}/"):]: torch.from_numpy(v)
                      for k, v in d.items() if k.startswith(f"batch{i}/")}
-            with sh.use_mesh(mesh):
+            with sh.use_mesh(mesh, rules):
                 rows = {k: sh.batch_rows(v) for k, v in batch.items()}
             if i == 0:
                 install, remove = record_shares(out, f"{tag}/{name}/share")
@@ -526,6 +550,10 @@ def _job_model_axis(kw: dict) -> dict:
         if (data, model_n) == (1, 2):
             out.update({f"{tag}/{k}": v for k, v in
                         _int8_update(kw, mesh).items()})
+            from repro_torch.launch.dryrun import RULE_PRESETS
+
+            out.update(_model_train(kw, mesh, "1x2zero3", MODEL_ZERO3,
+                                    RULE_PRESETS["zero3"]))
     if world == 2:
         out.update(_resume_layouts(kw))
     return out
@@ -552,9 +580,56 @@ def _resume_layouts(kw: dict) -> dict:
     return out
 
 
+# the dry run's cells held against a real step: f32 SMOKE configs,
+# batch x sequence, launch.dryrun's defaults (fp32 state, loss chunk 512)
+DRYRUN_ARCHS = ("gemma2-2b", "deepseek-moe-16b")
+DRYRUN_B, DRYRUN_S = 4, 32
+
+
+def _counted_step(arch: str, mesh, b: int) -> tuple:
+    """One sharded train step of `arch` (f32 SMOKE, seed-0 weights,
+    make_batch's batch 0 of b rows) under the dry run's counters:
+    (its record, its metrics)."""
+    from repro_torch.launch import dryrun
+
+    cfg = f32(arch)
+    model = M.init_model(cfg, 0, device="cpu")
+    zero = ts.Zero3(model, mesh)
+    ocfg = opt.OptConfig()
+    state = zero.init_opt_state(ocfg)
+    batch = tok.make_batch(cfg, tok.DataConfig(), 0, b, DRYRUN_S,
+                           device="cpu")
+    with sh.use_mesh(mesh):
+        rows = {k: sh.batch_rows(v) for k, v in batch.items()}
+    step = ts.make_sharded_train_step(cfg, ocfg, zero, ts.TrainHParams())
+    counter = dryrun.StepCounter([list(zero.shards.values()), state, rows])
+    with counter:
+        state, metrics = step(model, state, rows)
+    return counter.record((state, metrics)), metrics
+
+
+def _job_dryrun(kw: dict) -> dict:
+    world = dist.get_world_size()
+    data, model_n = (1, 2) if world == 2 else (2, 2)
+    mesh = mesh_mod.make_lm_mesh(data, model_n, device="cpu")
+    out = {}
+    for arch in DRYRUN_ARCHS:
+        rec, _ = _counted_step(arch, mesh, DRYRUN_B)
+        out[f"{arch}/flops"] = np.asarray(rec["cost"]["flops"])
+        for op, n in rec["collectives"]["counts"].items():
+            out[f"{arch}/count/{op}"] = np.asarray(n)
+            out[f"{arch}/bytes/{op}"] = np.asarray(
+                rec["collectives"]["bytes_by_op"][op])
+    if data > 1:
+        _, m = _counted_step("gemma2-2b", mesh, 1)
+        out["one_row/xent"] = m["xent"].numpy()
+        out["one_row/tokens"] = m["tokens"].numpy()
+    return out
+
+
 JOBS = dict(compress=_job_compress, pipeline=_job_pipeline,
             elastic=_job_elastic, train=_job_train,
-            model_axis=_job_model_axis)
+            model_axis=_job_model_axis, dryrun=_job_dryrun)
 
 
 def _entry(rank: int, world: int, port: int, job: str, outdir: str,
