@@ -237,11 +237,11 @@ failure:
      the share reached; the optimizer's device and host ms a step; peak
      bytes beside the state's; a 7th step traced with torch.profiler and
      its host syncs counted; fails on a non-finite xent or unless the
-     last xent is below the first; then one checkpoint of the fp32
-     tree: bytes, save, verify and restore ms, the restored tree equal
-     to the saved one); train_gemma2_int8 (2 steps with int8 state,
-     its bytes beside fp32's; then its checkpoint, which phase 17
-     restores);
+     last xent is below the first); train_gemma2_int8 (2 steps with
+     int8 state, its bytes beside fp32's; then one checkpoint of its
+     tree, f32 params and int8 state: bytes, save, verify and restore
+     ms, the restored tree equal to the saved one; phase 17 restores it
+     again);
      train_check (f32 copies of gemma2-2b, deepseek-moe-16b dropless,
      jamba-v0.1-52b with its period cut to its first two layers, and
      xlstm-1.3b, each at full width cut to 2 layers, batch 2 x 256: one
@@ -273,7 +273,12 @@ failure:
      stage, M = 2, on an f32 2-layer cut: within 2e-4 of the plain
      forward, gradient cosine > 0.999); serve_mesh (`launch.serve
      --mesh-data 1 --mesh-model 1`, gemma2-2b whole, 8 x 64 + 8, tokens
-     equal the one-device `generate`'s);
+     equal the one-device `generate`'s); split_kv_check (one process: a
+     full-width gemma2-2b attention layer's decode, 8 rows, a 32 768-slot
+     f32 cache, its local and a global layer, cut into the 16 slices of
+     the decode_32k cell's model ranks, the partial softmaxes combined
+     locally: within 1e-5 of the whole-length `_sdpa`, device ms of
+     both);
  18. [dryrun] (after phase 17 has destroyed its NCCL group: the dry run
      opens a fake process group of its own; no kernel of the six,
      checked): `launch.dryrun.run_cell` on train_gemma2's cell (gemma2-2b
@@ -283,7 +288,10 @@ failure:
      of `train_flops`' total, its peak within 10 % of phase 16's
      measured peak (the signed gap printed); then one production cell,
      gemma2-2b decode_32k as rank 0 of a fake (16, 16) world, its
-     record's summary line;
+     record's summary line, and its argument bytes equal to the
+     parameter shard + token rows + every kv head's f32 cache on 2048 of
+     the 32 768 positions, computed from the config (the figure with
+     the caches at full length printed beside it);
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -308,6 +316,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import socket
 import subprocess
@@ -633,7 +642,8 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
 
     def checkpoint_round_trip(name, model, state):
         """One checkpoint of {params, opt}: bytes, save / verify /
-        restore ms, the restored tree equal to the saved one."""
+        restore ms, the restored tree equal to the saved one.  Returns
+        (its path, its directory), which the caller removes."""
         tmp = tempfile.mkdtemp(prefix="train_ckpt_")
         tree = {"params": model.state_dict(), "opt": state}
         try:
@@ -647,7 +657,7 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
                 raise AssertionError(f"{name}: {free} free bytes for a "
                                      f"{need}-byte checkpoint")
             t0 = time.perf_counter()
-            path = ckpt.save(tmp, 7, tree, extra={"arch": "gemma2-2b"})
+            path = ckpt.save(tmp, 2, tree, extra={"arch": "gemma2-2b"})
             save_ms = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
             ok = ckpt.verify(path)
@@ -668,8 +678,10 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
                 f"{'equals' if same else 'DIFFERS FROM'} the saved one")
             if not (ok and same):
                 raise AssertionError(f"{name}: checkpoint round trip")
-        finally:
+        except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        return path, tmp
 
     gemma = get_config("gemma2-2b")
     B, S, CHUNK = TRAIN_SHAPE
@@ -755,9 +767,7 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
             f"({'device-bound' if busy / wall >= 0.5 else 'host-bound'}); "
             f"host syncs in the step {len(syncs)}"
             + (f" (first: {str(syncs[0].message)[:120]})" if syncs else ""))
-        del params, step_fn, batch
-        checkpoint_round_trip("train_gemma2", model, state)
-        del model, state
+        del params, step_fn, batch, model, state
 
     with cell("train_gemma2_int8"):
         ocfg8 = opt.OptConfig(peak_lr=TRAIN_LR, warmup_steps=2,
@@ -772,16 +782,12 @@ def train_phase(torch, dev, smi: str, seed: int) -> dict:
             f"{steps[0][0]:.1f}); int8 state {s8} bytes beside fp32's "
             f"{s_bytes} ({s8 / s_bytes:.3f}); peak device bytes "
             f"{torch.cuda.max_memory_allocated()} ({smi})")
-        # the int8 tree's checkpoint, which phase 17 restores onto the
-        # one-rank mesh (it removes the directory)
-        int8_dir = tempfile.mkdtemp(prefix="train_ckpt_int8_")
-        t0 = time.perf_counter()
-        int8_path = ckpt.save(int8_dir, 2, {"params": model.state_dict(),
-                                            "opt": state},
-                              extra={"arch": "gemma2-2b"})
-        log(f"[train] train_gemma2_int8 checkpoint for phase 17: "
-            f"{os.path.getsize(os.path.join(int8_path, 'arrays.npz'))} bytes,"
-            f" save {(time.perf_counter() - t0) * 1e3:.0f} ms")
+        # the int8 tree's checkpoint round trip (the one checkpoint of
+        # this phase: the fp32 tree's, twice the bytes, went to keep the
+        # smoke inside its limit); phase 17 restores it onto the one-rank
+        # mesh and removes the directory
+        int8_path, int8_dir = checkpoint_round_trip("train_gemma2_int8",
+                                                    model, state)
         readings["int8"] = dict(model=model, state=state, ocfg=ocfg8,
                                 path=int8_path, dir=int8_dir)
         del model, state
@@ -1235,7 +1241,76 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
         raise AssertionError("serve_mesh: tokens differ")
     del model
     tdist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    split_kv_check(torch, dev, smi, seed)
     log(f"[train_mesh] phase 17 in {time.perf_counter() - wall:.1f} s")
+
+
+# the slices phase 17's split_kv_check cuts a decode cache into: the
+# (16, 16) mesh's model ranks of gemma2-2b's decode_32k cell
+SPLIT_KV = dict(rows=8, length=32768, slices=16, pos=20000)
+
+
+def split_kv_check(torch, dev, smi: str, seed: int) -> None:
+    """Phase 17's split_kv_check: one decode step's attention of a
+    full-width gemma2-2b layer (8 rows, a 32 768-slot f32 cache, a local
+    layer's 4096 window and a global layer) over the cache cut into 16
+    slices of 2048 rows, each slice's partial softmax combined in this
+    process (`layers.sdpa_slices`, what the 16 model ranks of the
+    decode_32k cell compute together), against `_sdpa` over the whole
+    length: within 1e-5 (TF32 is off).  At pos 20000 the window spans
+    slices 7 to 9, and the global layer's slices 10 to 15 are empty.
+    Prints the device ms of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("gemma2-2b")
+    b, n, pos = SPLIT_KV["rows"], SPLIT_KV["slices"], SPLIT_KV["pos"]
+    length = SPLIT_KV["length"]
+    att = layers.Attention(cfg, device=dev, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    att.reset_parameters(g)
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+    kv = (b, length, cfg.num_kv_heads, cfg.head_dim)
+    ck = torch.randn(kv, generator=g, device=dev)
+    cv = torch.randn(kv, generator=g, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn):
+        fn()                                      # warm
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        return out, sorted(ms)[2]
+
+    w = length // n
+    with torch.no_grad():
+        posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+        q = layers.apply_rope(att._q(x), posb, cfg.rope_theta)
+        for kind, window in (("local", cfg.window_size), ("global", 0)):
+            mask = layers.decode_mask(0, length, pos, window, dev)
+            masks = [layers.decode_mask(i * w, (i + 1) * w, pos, window, dev)
+                     for i in range(n)]
+            empty = sum(not bool(m.any()) for m in masks)
+            want, whole_ms = timed(lambda: layers._sdpa(q, ck, cv, mask, cfg))
+            got, split_ms = timed(lambda: layers.sdpa_slices(
+                q, ck.split(w, dim=1), cv.split(w, dim=1), masks, cfg))
+            err = float((got - want).abs().max())
+            log(f"[train_mesh] split_kv_check: gemma2-2b {kind} layer "
+                f"decode, {b} rows, an f32 cache of {length} slots, q at "
+                f"{pos}, cut into {n} slices of {w} ({empty} empty): the "
+                f"slices' combined partial softmax {err:.3g} from the "
+                f"whole-length _sdpa (gate 1e-5); {split_ms:.3f} ms over "
+                f"the slices against {whole_ms:.3f} ms whole (median of 5, "
+                f"device ms; {smi})")
+            if not err <= 1e-5:
+                raise AssertionError(f"split_kv_check {kind}: {err}")
 
 
 # -- 18. [dryrun]: the dry run against phase 16's step --------------------
@@ -1244,13 +1319,38 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
 DRYRUN_CELL = ("gemma2-2b", "decode_32k")
 
 
+def decode_cell_bytes(arch: str, shape: str, mesh: tuple) -> tuple:
+    """(rank 0's argument bytes of a decode cell of an attention-only
+    arch whose kv heads do not divide over the model axis, computed
+    from its config: the parameter shard (`launch.mesh.model_axis_plan`),
+    the token rows (int32) and the f32 k / v caches of every layer, each
+    holding every kv head on length / model positions; the same with
+    the caches at full length)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.mesh import model_axis_plan
+
+    cfg = get_config(arch)
+    data, model = mesh
+    if cfg.num_kv_heads % model == 0 or any(
+            cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise ValueError(f"{arch}: not a cell whose caches split over model")
+    spec = SHAPES[shape]
+    rows = spec.global_batch // data
+    params = sum(math.prod(local) * nbytes for _, local, nbytes in
+                 model_axis_plan(cfg, data, model, 0).values())
+    cache = 2 * cfg.num_layers * rows * cfg.num_kv_heads * cfg.head_dim * 4
+    return (params + 4 * rows + cache * (spec.seq_len // model),
+            params + 4 * rows + cache * spec.seq_len)
+
+
 def dryrun_phase(p16: dict, smi: str) -> None:
     """Phase 18 [dryrun]: `launch.dryrun`'s counts of train_gemma2's step
     (built on the meta device, rank 0 of a fake one-rank world) held
     against what phase 16 measured on the card and against
     `train_flops`, then one production cell.  Raises on a failed check."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.train import train_step as ts
 
@@ -1284,6 +1384,18 @@ def dryrun_phase(p16: dict, smi: str) -> None:
         f"device: {dryrun.summary(prod)}; wire bytes by op "
         f"{prod['collectives']['bytes_by_op']}, counts "
         f"{prod['collectives']['counts']}")
+    split_args, whole_args = decode_cell_bytes(arch, shape, (16, 16))
+    got_args = prod["memory"]["argument_bytes"]
+    seq = SHAPES[shape].seq_len
+    log(f"[dryrun] {arch} {shape} argument bytes {got_args} "
+        f"({got_args / 2**30:.2f} GiB) vs the parameter shard + rows + "
+        f"every kv head's cache on {seq // 16} of {seq} positions, from the config: {split_args} "
+        f"({'equal' if got_args == split_args else 'DIFFERENT'}); with "
+        f"the caches at full length a rank, as before the length split: "
+        f"{whole_args} ({whole_args / 2**30:.2f} GiB)")
+    if got_args != split_args:
+        raise AssertionError(f"dryrun: {arch} {shape} argument bytes "
+                             f"{got_args} != the split layout's {split_args}")
     if mem["argument_bytes"] != want_args:
         raise AssertionError(f"dryrun: argument bytes {mem['argument_bytes']}"
                              f" != phase 16's {want_args}")

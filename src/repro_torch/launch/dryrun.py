@@ -446,13 +446,15 @@ def _decode_prefill_batch(cfg: ModelConfig, b: int, s: int) -> dict:
 
 def _states_of(model, zero, mesh, rules, cfg, b: int, s: int):
     """This rank's decode states: a `DECODE_PREFILL_LEN`-token prefill
-    at max_len s (the KV caches padded to s), as the reference builds
-    them, with the gathered weights."""
+    at max_len s (the KV caches padded to s, and laid out as the
+    reference's `_decode_state_shardings` lays them out:
+    `sharding.cache_spec`), as the reference builds them, with the
+    gathered weights."""
     rows = _rows(mesh, rules, _decode_prefill_batch(cfg, b, s))
     zero.gather()
     try:
         with torch.no_grad(), sh.use_mesh(mesh, rules), _FastMeta():
-            _, states = M.prefill(model, rows, max_len=s)
+            _, states = M.prefill(model, rows, max_len=s, rows=b)
     finally:
         zero.release()
     return states
@@ -498,7 +500,7 @@ def build_cell(arch: str, shape, mesh: NamedMesh, rules: dict | None = None,
             zero.gather()
             try:
                 with torch.no_grad(), sh.use_mesh(mesh, rules):
-                    return M.prefill(model, rows, max_len=s)
+                    return M.prefill(model, rows, max_len=s, rows=b)
             finally:
                 zero.release()
 
@@ -543,8 +545,9 @@ def run_cell(arch: str, shape, multi_pod: bool, unroll: bool = False,
         del out
     # the reference's key, for the most any rank holds: the same as this
     # rank's, since `sharding.local_slices` cuts a split dim into equal
-    # chunks (and refuses one that does not divide) and the rows and
-    # decode states split evenly too
+    # chunks (and refuses one that does not divide), and the rows and
+    # decode states split evenly too (a split cache length takes only a
+    # candidate that divides whole: `sharding.cache_spec`)
     rec["memory"]["argument_bytes_max_rank"] = \
         rec["memory"]["argument_bytes"]
     mem = rec["memory"]

@@ -339,7 +339,7 @@ def cli_mesh(args, log):
     1 or a process group is up (torchrun, whose world must hold data x
     model ranks); then only rank 0 logs, and the batch must split over
     the data ranks (the model ranks of a data row take the same
-    rows)."""
+    rows), or be one row, which every rank takes whole."""
     for flag in ("mesh_data", "mesh_model"):
         if getattr(args, flag) < 1:
             raise ValueError(f"--{flag.replace('_', '-')} must be >= 1, not "
@@ -347,7 +347,7 @@ def cli_mesh(args, log):
     if args.mesh_data == args.mesh_model == 1 and not dist.is_initialized():
         return None, resolve_device(args.device), log
     mesh = make_lm_mesh(args.mesh_data, args.mesh_model, device=args.device)
-    if args.batch % args.mesh_data:
+    if args.batch % args.mesh_data and args.batch != 1:
         raise ValueError(f"--batch {args.batch} does not split over "
                          f"--mesh-data {args.mesh_data} ranks")
     return mesh, mesh.device, log if is_rank0() else (lambda s: None)

@@ -18,10 +18,14 @@ processes: gloo with `--device cpu`, NCCL on cards): every rank builds
 the same weights and request batch, keeps its model shard of each
 weight (`train_step.Zero3` with `fsdp` off: the weights are whole over
 the data ranks), generates its data row's rows (`sharding.batch_rows`;
-the batch must divide over D), and the tokens are all-gathered, so
-every rank returns the whole batch; rank 0 prints.  The logits of a
-split vocab are gathered before the argmax, so greedy tokens (ties to
-the lowest id) equal one rank's.
+the batch must divide over D, or be one row, which every rank serves
+whole), and the tokens are all-gathered, so every rank returns the
+whole batch; rank 0 prints.  The logits of a split vocab are gathered
+before the argmax, so greedy tokens (ties to the lowest id) equal one
+rank's.  The KV caches take the reference's layout
+(`sharding.cache_spec`): where the kv heads do not divide over M, or
+the batch is one row, each rank holds a slice of the length, and the
+decode step combines the ranks' partial softmaxes.
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ SERVE_RULES = {"fsdp": None}
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     @torch.no_grad()
-    def prefill(model: M.Model, batch):
-        return M.prefill(model, batch, max_len)
+    def prefill(model: M.Model, batch, rows: int | None = None):
+        return M.prefill(model, batch, max_len, rows)
 
     return prefill
 
@@ -69,15 +73,18 @@ def make_decode_step(cfg: ModelConfig, greedy: bool = True):
 
 @torch.no_grad()
 def generate(model: M.Model, batch, steps: int, max_len: int,
-             greedy: bool = True, seed: int = 0) -> torch.Tensor:
+             greedy: bool = True, seed: int = 0,
+             rows: int | None = None) -> torch.Tensor:
     """Prefill, then `steps - 1` decode steps.  Returns the [B, steps]
     int32 tokens on the model's device (not synchronised).  The steps
     run under `torch.no_grad()`: a model being trained records no graph
-    here."""
+    here.  Over data-parallel ranks `batch` is this rank's rows of a
+    global batch of `rows` rows (`models.model.prefill`: the decode
+    caches' layout reads it)."""
     cfg = model.cfg
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg, greedy)
-    logits, states = prefill(model, batch)
+    logits, states = prefill(model, batch, rows)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     pos0 = sum(batch[k].shape[1] for k in ("tokens", "prefix_embeds")
                if k in batch)
@@ -150,7 +157,7 @@ def run(args: argparse.Namespace, model: M.Model | None = None,
                          gen=args.gen) as sp, sh.use_mesh(mesh, SERVE_RULES):
             rows = {k: sh.batch_rows(v) for k, v in batch.items()}
             toks = generate(model, rows, steps=args.gen, max_len=max_len,
-                            seed=args.seed)
+                            seed=args.seed, rows=args.batch)
             toks = sh.batch_gather(toks, args.batch).cpu().numpy()
     finally:
         zero.gather(whole=True)

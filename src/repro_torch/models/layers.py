@@ -24,6 +24,15 @@ passes `sharding.enter` once, the row-parallel product
 do (GQA), every rank projects all kv heads and gives each of its q
 heads its own; where the heads do not divide, the attention runs whole
 on every rank.  `RmsNorm` is replicated.
+
+A decode cache whose length `sharding.length_split` splits (the kv
+heads do not divide over `model`, or a batch of one row) holds every
+kv head on rows [lo, hi) of the length.  The decode step then attends
+every q head over the slice (`_sdpa_partial`: the slice's max score m,
+l = sum exp(s - m) and o = sum exp(s - m) v, in f32) and combines the
+ranks' partials (`combine_partials`: an all-reduce MAX of m, then one
+all-reduce SUM of o and l rescaled by exp(m - max)); only the rank whose
+slice holds `pos` writes the step's K / V.
 """
 
 from __future__ import annotations
@@ -144,6 +153,66 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     ct = torch.promote_types(probs.dtype, v.dtype)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs.to(ct), v.to(ct))
     return out.reshape(b, sq, hq, dh)
+
+
+def _sdpa_partial(q, k, v, mask, cfg: ModelConfig) -> tuple:
+    """`_sdpa` over one slice of the keys, not yet normalised: (m, l, o)
+    in f32, m [B, Hkv, g, Sq, 1] the slice's max score (-1e30 where the
+    mask leaves it empty), l = sum exp(s - m) and o [B, Hkv, g, Sq, dh] =
+    sum exp(s - m) v.  The scores as `_sdpa` makes them: the division by
+    sqrt(dh), the softcap and the -1e30 fill."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    ct = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg.to(ct), k.to(ct))
+    scores = _softcap(scores.float() / math.sqrt(dh), cfg.attn_logit_softcap)
+    scores = torch.where(mask, scores, -1e30)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    o = torch.einsum("bhgqs,bshk->bhgqk", p, v.float())
+    return m, p.sum(-1, keepdim=True), o
+
+
+def combine_partials(m, l, o, reduce, dtype) -> torch.Tensor:
+    """The attention output [B, Sq, Hq, dh] in `dtype` from the slices'
+    partials (`_sdpa_partial`), reduced over the slices by `reduce(t,
+    op)` (op "max" or "sum": an all-reduce over the ranks that split the
+    length, or `over_slices` for partials stacked on dim 0).  A slice
+    the mask leaves empty (m = -1e30) adds exp(-1e30 - max) = 0."""
+    top = reduce(m, "max")
+    w = torch.exp(m - top)
+    ol = reduce(torch.cat([o * w, l * w], dim=-1), "sum")
+    out = ol[..., :-1] / ol[..., -1:]              # [B, Hkv, g, Sq, dh]
+    b, hkv, g, sq, dh = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, dh).to(dtype)
+
+
+def over_slices(t: torch.Tensor, op: str) -> torch.Tensor:
+    """`combine_partials`' reduce over partials stacked on dim 0."""
+    return t.amax(0) if op == "max" else t.sum(0)
+
+
+def sdpa_slices(q, ks, vs, masks, cfg: ModelConfig) -> torch.Tensor:
+    """`_sdpa` over the keys cut into slices (k / v [B, s_r, Hkv, dh],
+    each with its mask), the partials combined in this process: what
+    the ranks that split a decode cache's length compute together."""
+    parts = [_sdpa_partial(q, k, v, m, cfg) for k, v, m in zip(ks, vs, masks)]
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    return combine_partials(m, l, o, over_slices,
+                            torch.promote_types(q.dtype, vs[0].dtype))
+
+
+def decode_mask(lo: int, hi: int, pos: int, window: int,
+                device=None) -> torch.Tensor:
+    """[1, 1, 1, 1, hi - lo] mask of cache rows lo..hi-1 (global
+    positions) for the query at `pos`: at or before it, and with window
+    > 0 within the window's last `window` positions."""
+    ki = torch.arange(lo, hi, device=device)
+    mask = ki <= pos
+    if window > 0:
+        mask &= ki > pos - window
+    return mask[None, None, None, None, :]
 
 
 def causal_mask(sq: int, sk: int, window: int = 0,
@@ -267,20 +336,26 @@ class Attention(nn.Module):
         return k, v
 
     def project_kv(self, x, xe=None, heads=None):
-        """K / V of x for this rank's q heads (for cross-attention, the
-        encoder states, projected once for all decoder calls); `xe` is x
-        already through `enter`, `heads` `_heads()`.  Split kv heads:
-        this rank's.  kv heads whole while the q heads split: all of
-        them projected on every rank, then through `enter`, and each of
-        this rank's q heads given its kv head (one kv head a q head)."""
-        qs, kvs, q_split = heads or self._heads()
-        if sh.is_split(kvs, self.cfg.num_kv_heads):
+        """K / V of x as a cache holds them (for cross-attention, the
+        encoder states, projected once for all decoder calls): this
+        rank's kv heads where they split, else all of them, projected on
+        every rank.  `xe` is x already through `enter`, `heads`
+        `_heads()`."""
+        heads = heads or self._heads()
+        if sh.is_split(heads[1], self.cfg.num_kv_heads):
             return self._kv(sh.enter(x) if xe is None else xe)
-        k, v = self._kv(x)
-        if not q_split:
+        return self._kv(x)
+
+    def _per_q(self, k, v, heads):
+        """The kv heads this rank's q heads read: k / v as they are,
+        or, where the q heads split while the kv heads are whole, each
+        of this rank's q heads' own (one kv head a q head), through
+        `enter`."""
+        qs, kvs, q_split = heads
+        if not q_split or sh.is_split(kvs, self.cfg.num_kv_heads):
             return k, v
         g = self.cfg.num_heads // self.cfg.num_kv_heads
-        ids = torch.arange(qs.start, qs.stop, device=x.device) // g
+        ids = torch.arange(qs.start, qs.stop, device=k.device) // g
         return sh.enter(k)[:, :, ids], sh.enter(v)[:, :, ids]
 
     def _out(self, o, dtype, q_split: bool):
@@ -298,11 +373,11 @@ class Attention(nn.Module):
         xe = sh.enter(x) if heads[2] else x
         q = self._q(xe)
         if kv_override is None:
-            k, v = self.project_kv(x, xe, heads)
+            k, v = self._per_q(*self.project_kv(x, xe, heads), heads)
             q = apply_rope(q, positions, self.cfg.rope_theta)
             k = apply_rope(k, positions, self.cfg.rope_theta)
         else:
-            k, v = kv_override
+            k, v = self._per_q(*kv_override, heads)
         window = self.cfg.window_size if local else 0
         out = _full_attention(q, k, v, self.cfg, causal, window,
                               chunk_ok=q.shape[1] == k.shape[1])
@@ -310,7 +385,7 @@ class Attention(nn.Module):
 
     def prefill(self, x, positions, *, local: bool = False):
         """Causal self-attention that also returns the rotated K / V for
-        the decode cache (this rank's kv heads): the reference's
+        the decode cache (`project_kv`'s heads): the reference's
         `_attn_prefill`."""
         heads = self._heads()
         xe = sh.enter(x) if heads[2] else x
@@ -318,36 +393,62 @@ class Attention(nn.Module):
         k, v = self.project_kv(x, xe, heads)
         k = apply_rope(k, positions, self.cfg.rope_theta)
         window = self.cfg.window_size if local else 0
-        out = _full_attention(q, k, v, self.cfg, True, window, chunk_ok=True)
+        out = _full_attention(q, *self._per_q(k, v, heads), self.cfg, True,
+                              window, chunk_ok=True)
         return self._out(out, x.dtype, heads[2]), (k, v)
 
     def decode(self, x, cache_k, cache_v, pos: int, *, local: bool = False,
-               cross: bool = False):
+               cross: bool = False, split: sh.LengthSplit | None = None):
         """One decode step at position `pos` (a host int): x [B, 1, d].
         Writes this step's K / V into the caches in place, at `pos`, and
         returns (out [B, 1, d], cache_k, cache_v).  A cross-attention
-        cache holds the projected encoder states and is left as it is."""
+        cache holds the projected encoder states and is left as it is.
+
+        With `split` the caches hold every kv head on rows [lo, hi) of
+        the length: the rank whose rows hold `pos` writes there, every
+        q head (gathered over `model` where they split) attends the
+        slice, the ranks' partials are combined, and this rank's q
+        heads' output goes on to wo."""
         heads = self._heads()
-        xe = sh.enter(x) if heads[2] else x
+        qs, kvs, q_split = heads
+        xe = sh.enter(x) if q_split else x
         q = self._q(xe)
-        s = cache_k.shape[1]
-        ki = torch.arange(s, device=x.device)
-        if cross:
-            mask = torch.ones((s,), dtype=torch.bool, device=x.device)
-        else:
+        if not cross:
             k, v = self.project_kv(x, xe, heads)
             posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                               device=x.device)
             q = apply_rope(q, posb, self.cfg.rope_theta)
             k = apply_rope(k, posb, self.cfg.rope_theta)
-            cache_k[:, pos:pos + 1] = k
-            cache_v[:, pos:pos + 1] = v
-            mask = ki <= pos
-            if local and self.cfg.window_size > 0:
-                mask &= ki > pos - self.cfg.window_size
-        out = _sdpa(q, cache_k, cache_v, mask[None, None, None, None, :],
-                    self.cfg)
-        return self._out(out, x.dtype, heads[2]), cache_k, cache_v
+        lo, hi = (0, cache_k.shape[1]) if split is None else (split.lo,
+                                                              split.hi)
+        if split is not None:
+            if not 0 <= pos < split.length:
+                raise IndexError(f"position {pos} outside a cache of "
+                                 f"{split.length}")
+            if q_split:
+                q = sh.model_gather(q, 2, split_use=False)
+            if not cross and sh.is_split(kvs, self.cfg.num_kv_heads):
+                k = sh.model_gather(k, 2, split_use=False)
+                v = sh.model_gather(v, 2, split_use=False)
+        if not cross and (split is None or lo <= pos < hi):
+            cache_k[:, pos - lo:pos - lo + 1] = k
+            cache_v[:, pos - lo:pos - lo + 1] = v
+        if cross:
+            mask = torch.ones((1, 1, 1, 1, hi - lo), dtype=torch.bool,
+                              device=x.device)
+        else:
+            mask = decode_mask(lo, hi, pos, self.cfg.window_size if local
+                               else 0, x.device)
+        if split is None:
+            out = _sdpa(q, *self._per_q(cache_k, cache_v, heads), mask,
+                        self.cfg)
+        else:
+            out = combine_partials(
+                *_sdpa_partial(q, cache_k, cache_v, mask, self.cfg),
+                split.reduce, torch.promote_types(q.dtype, cache_v.dtype))
+            if q_split:
+                out = out[:, :, qs]
+        return self._out(out, x.dtype, q_split), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

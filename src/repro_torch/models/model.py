@@ -24,7 +24,8 @@ Entry points, as the reference's:
                                     load-balance loss, router z-loss)
                                     summed over the layers
   logits_from_hidden(model, h)   -> f32 logits, final softcap applied
-  prefill(model, batch, max_len) -> (last logits [B, V], decode states)
+  prefill(model, batch, max_len, rows) -> (last logits [B, V], decode
+                                    states)
   decode_step(model, token, states, pos) -> (logits [B, V], states)
 
 Over the model axis (`sharding.model_slice`; the rules carry `heads`,
@@ -40,10 +41,15 @@ and the decode states hold this rank's heads and channels.
 Decode states are one dict per layer.  Attention: `k` / `v` [B, max_len,
 Hkv, dh] self-attention caches, and for the encoder-decoder `xk` / `xv`,
 the projected encoder states; `decode_step` writes each step's K / V
-into the caches in place.  Mamba: `h` [B, di, N] f32 and `conv` [B,
-d_conv - 1, di].  mLSTM: `C`, `n`, `m`; sLSTM: `c`, `n`, `h`, `m` (the
-reference's tuples, by name).  Recurrent states are fixed-size and are
-replaced at each step; `pos` is no input to them.
+into the caches in place.  Over a mesh a cache is laid out as the
+reference's dry run lays it out (`sharding.cache_spec`): this rank's kv
+heads, or where they do not divide (or the batch is one row) every kv
+head on this rank's slice of the length, with its
+`sharding.LengthSplit` under `kv_split` / `xkv_split`.  Mamba: `h` [B,
+di, N] f32 and `conv` [B, d_conv - 1, di].  mLSTM: `C`, `n`, `m`;
+sLSTM: `c`, `n`, `h`, `m` (the reference's tuples, by name).  Recurrent
+states are fixed-size and are replaced at each step; `pos` is no input
+to them.
 """
 
 from __future__ import annotations
@@ -86,6 +92,15 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
     )
 
 
+def _cache(k, v, split, prefix: str = "") -> dict:
+    """A layer's cache entries: k / v (xk / xv with prefix "x"), and
+    their `sharding.LengthSplit` where the length is split."""
+    out = {prefix + "k": k, prefix + "v": v}
+    if split is not None:
+        out[prefix + "kv_split"] = split
+    return out
+
+
 class Block(nn.Module):
     """Layer i: norm1 + its mixer (self-attention, with `cross` a
     norm_x + cross-attention over the encoder states; or mamba, mLSTM,
@@ -119,10 +134,11 @@ class Block(nn.Module):
             return self.attn(h, positions, local=self.local), {}
         if mode == "prefill":
             mix, (ck, cv) = self.attn.prefill(h, positions, local=self.local)
-        else:
-            mix, ck, cv = self.attn.decode(h, state["k"], state["v"], pos,
-                                           local=self.local)
-        return mix, {"k": ck, "v": cv}
+            return mix, {"k": ck, "v": cv}
+        split = state.get("kv_split")
+        mix, ck, cv = self.attn.decode(h, state["k"], state["v"], pos,
+                                       local=self.local, split=split)
+        return mix, _cache(ck, cv, split)
 
     def _recur(self, h, mode, state):
         _, with_state, decode, fields = _RECURRENT[self.kind]
@@ -131,6 +147,11 @@ class Block(nn.Module):
             mix, st = decode(mixer, h, tuple(state[f] for f in fields))
         else:
             mix, st = with_state(mixer, h)
+        if mode == "prefill":
+            # in storage of their own: the scan's last state and the
+            # conv's last rows are views of the prefill's whole buffers,
+            # which they would keep alive through the decode
+            st = tuple(t.clone() for t in st)
         return mix, ({} if mode == "train" else dict(zip(fields, st)))
 
     def forward(self, x, positions, enc_out=None, mode: str = "train",
@@ -146,9 +167,10 @@ class Block(nn.Module):
         if self.cross is not None:
             hx = self.norm_x(x)
             if mode == "decode":
+                split = state.get("xkv_split")
                 cx, _, _ = self.cross.decode(hx, state["xk"], state["xv"],
-                                             pos, cross=True)
-                st.update(xk=state["xk"], xv=state["xv"])
+                                             pos, cross=True, split=split)
+                st.update(_cache(state["xk"], state["xv"], split, "x"))
             else:
                 kx, vx = self.cross.project_kv(enc_out)
                 cx = self.cross(hx, positions, causal=False,
@@ -395,18 +417,57 @@ def logits_from_hidden(model: Model, hidden: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def prefill(model: Model, batch, max_len: int):
+def prefill(model: Model, batch, max_len: int, rows: int | None = None):
     """Returns (last_logits [B, V], decode states).  Self-attention
     caches are padded to max_len so decode_step extends them in place;
-    cross caches keep the encoder length, recurrent states their size."""
+    cross caches keep the encoder length, recurrent states their size.
+
+    `rows` is the number of rows of the global batch that this rank's
+    `batch` was cut from (`sharding.batch_rows`); it may be left out
+    where nothing splits the batch.  Each cache is laid out by
+    `sharding.cache_spec` on its global shape [rows, length, Hkv, dh]:
+    where that splits the length, the cache keeps every kv head (those
+    of the other model ranks gathered) on this rank's rows [lo, hi) of
+    the length, and its `LengthSplit` goes with it (`kv_split` /
+    `xkv_split`)."""
+    if rows is None:
+        if sh.batch_group()[1] > 1:
+            raise ValueError("prefill over data-parallel ranks needs the "
+                             "global batch's rows")
+        rows = next(iter(batch.values())).shape[0]
     hidden, states, _ = _run(model, batch, "prefill")
     for st in states:
-        for key in ("k", "v") if "k" in st else ():
-            c = st[key]
-            pad = c.new_zeros((c.shape[0], max_len - c.shape[1])
-                              + c.shape[2:])
-            st[key] = torch.cat([c, pad], dim=1)
+        if "k" in st:
+            st.update(_lay_out(model.cfg, st["k"], st["v"], rows, max_len))
+        if "xk" in st:
+            st.update(_lay_out(model.cfg, st["xk"], st["xv"], rows,
+                               st["xk"].shape[1], "x"))
     return _whole_logits(model, hidden[:, -1:, :])[:, 0], states
+
+
+def _lay_out(cfg: ModelConfig, k, v, rows: int, length: int,
+             prefix: str = "") -> dict:
+    """A cache pair from the prefill's K / V [b, s, heads, dh] (s <=
+    length), laid out at `length` positions: zero-padded to it where the
+    length is whole; where `sharding.length_split` splits it, every kv
+    head on this rank's rows [lo, hi), in storage of its own."""
+    split = sh.length_split((rows, length, cfg.num_kv_heads, cfg.head_dim))
+    out = []
+    for c in (k, v):
+        if split is None:
+            if c.shape[1] < length:
+                pad = c.new_zeros((c.shape[0], length - c.shape[1])
+                                  + c.shape[2:])
+                c = torch.cat([c, pad], dim=1)
+            out.append(c)
+            continue
+        if c.shape[2] < cfg.num_kv_heads:
+            c = sh.model_gather(c, 2, split_use=False)
+        part = c.new_zeros((c.shape[0], split.hi - split.lo) + c.shape[2:])
+        n = max(0, min(split.hi, c.shape[1]) - split.lo)
+        part[:, :n] = c[:, split.lo:split.lo + n]
+        out.append(part)
+    return _cache(*out, split, prefix)
 
 
 def _whole_logits(model: Model, hidden: torch.Tensor) -> torch.Tensor:

@@ -31,12 +31,19 @@ gradient over the model group), `leave` sums the ranks' partial outputs
 (all-reduce; its backward passes the gradient through), and
 `model_gather` all-gathers a split tensor.  With a model group of size 1
 every one of them returns its input.
+
+The decode caches take the reference's dry-run layout (`cache_spec`):
+kv heads over `model`, else the KV length over `model`, else (a batch
+of one row) over `data` x `model`; `length_split` gives this rank's
+slice of a split length, whose `reduce` combines the ranks' partial
+attention.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 
 import torch
@@ -538,3 +545,103 @@ def model_gather(x: torch.Tensor, dim: int, split_use: bool) -> torch.Tensor:
         return x
     return _GatherModel.apply(x, dim % x.dim(), model_group(), n,
                               model_rank(), split_use)
+
+
+# -- the decode caches' layout ------------------------------------------------
+
+
+def _fit_spec(sizes: dict, candidate: tuple, shape: tuple) -> tuple:
+    """(the candidate's spec fitted to `shape`, whether it fits whole):
+    each dim keeps its mesh axes (those in `sizes` and not taken by an
+    earlier dim), trailing ones dropped until the dim divides over
+    them.  The reference's `_fit_spec`."""
+    out, full, used = [], True, set()
+    for dim, entry in zip(shape, candidate):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        fitted = axes
+        while fitted and dim % math.prod(sizes[a] for a in fitted):
+            fitted = fitted[:-1]
+        full = full and fitted == axes
+        used.update(fitted)
+        out.append(None if not fitted else
+                   fitted[0] if len(fitted) == 1 else fitted)
+    return tuple(out), full
+
+
+def _cache_sizes() -> dict:
+    """The current mesh's axis sizes as the cache layout reads them: the
+    model axis at `model_size()` (a preset that puts `model` among the
+    batch axes splits no heads, so no cache either)."""
+    sizes = dict(_CTX.mesh.shape)
+    if "model" in sizes:
+        sizes["model"] = model_size()
+    return sizes
+
+
+def cache_spec(shape: tuple) -> tuple:
+    """The spec of a decode cache (`k` / `v`, or the cross caches `xk` /
+    `xv`) of global shape [B, S, Hkv, dh] on the current mesh: the first
+    of the reference's candidates (`_decode_state_shardings`) that fits
+    whole, else the first one fitted (`_fit_spec`):
+
+      1. the rows over the batch axes, the kv heads over `model`;
+      2. the rows over the batch axes, the length over `model` (the kv
+         heads do not divide);
+      3. the length over `data` x `model`, the rows whole (they do not
+         split over the batch axes: a batch of one row).
+
+    The batch axes are `pod` and `data`, as the reference's.  All Nones
+    outside a mesh."""
+    if _CTX.mesh is None:
+        return (None,) * len(shape)
+    sizes = _cache_sizes()
+    bx = tuple(a for a in ("pod", "data") if a in sizes)
+    candidates = ((bx, None, "model", None), (bx, "model", None, None),
+                  (None, ("data", "model"), None, None))
+    for cand in candidates:
+        spec, full = _fit_spec(sizes, cand, shape)
+        if full:
+            return spec
+    return _fit_spec(sizes, candidates[0], shape)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class LengthSplit:
+    """This rank's rows [lo, hi) of a decode cache's `length` positions,
+    which the mesh axes `axes` split (`length_split`); the cache then
+    holds every kv head."""
+    axes: tuple
+    lo: int
+    hi: int
+    length: int
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """t all-reduced over the ranks that split the length: op "max"
+        or "sum"."""
+        y = t.detach().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM,
+                        group=_CTX.mesh.group(self.axes))
+        return y
+
+
+def length_split(shape: tuple) -> LengthSplit | None:
+    """Where `cache_spec(shape)` splits the length (dim 1 of [B, S, Hkv,
+    dh]) over more than one rank, this rank's `LengthSplit` of it
+    (`local_slices`' chunk: row-major over the axes' coordinates); None
+    where the length is whole (the first candidate: kv heads over
+    `model`, or nothing split)."""
+    if _CTX.mesh is None:
+        return None
+    sizes = _cache_sizes()
+    entry = cache_spec(shape)[1]
+    axes = tuple(a for a in ((entry,) if isinstance(entry, str)
+                             else entry or ()) if sizes[a] > 1)
+    if not axes:
+        return None
+    # the axes kept have the mesh's own sizes (only a `model` axis that
+    # splits nothing reads 1, and it is dropped above)
+    start, stop, _ = local_slices(_CTX.mesh, (None, axes), shape[:2])[
+        1].indices(shape[1])
+    return LengthSplit(axes, start, stop, shape[1])

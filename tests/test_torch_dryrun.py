@@ -12,7 +12,7 @@
     long_500k cells of the two archs that run it), parameters and batch
     exactly, and the decode states exactly where both packages lay them
     out alike (`STATE_LAYOUTS` names each cell where they differ, and
-    why);
+    why: xLSTM's only), and the decode states at (2, 16, 16) too;
   * the FLOPs of one train step, prefill and decode step of each arch's
     SMOKE config at (1, 1), under `unroll_scope(True)` on both sides,
     against the reference's dot FLOPs: 2 x prod(result) x prod(contracted
@@ -163,27 +163,16 @@ def test_train_argument_bytes_equal_the_reference_shards(arch, shape, sizes,
     assert got == want
 
 
-_WHOLE_HEADS = ("the q heads do not divide over 16 model ranks: attention "
-                "runs whole on every rank, with every kv head's cache; the "
-                "reference splits the KV length over `model`")
 # Decode cells whose states the two packages lay out differently (rank
-# 0's bytes), and why.  Everywhere else they are equal.
+# 0's bytes), and why.  Everywhere else they are equal: the attention
+# caches follow `sharding.cache_spec`, the reference's candidates (kv
+# heads over `model`; else the length over `model`; else, at one row,
+# over `data` x `model`).
 STATE_LAYOUTS = {
-    ("llama4-maverick-400b-a17b", "decode_32k"): _WHOLE_HEADS,
-    ("phi3-medium-14b", "decode_32k"): _WHOLE_HEADS,
-    ("starcoder2-7b", "decode_32k"): _WHOLE_HEADS,
-    ("gemma2-2b", "decode_32k"): _WHOLE_HEADS,
-    ("jamba-v0.1-52b", "decode_32k"):
-        "32 q heads split 2 a rank, 8 kv heads do not: a rank caches its "
-        "q heads' kv heads, one a q head; the reference splits the KV "
-        "length over `model`",
-    ("jamba-v0.1-52b", "long_500k"):
-        "as decode_32k; at one row the reference splits the KV length over "
-        "`data` and `model`",
     ("xlstm-1.3b", "decode_32k"):
         "4 heads over 16 model ranks: a rank runs the head its columns cut "
         "and holds that head's whole mLSTM / sLSTM state; the reference "
-        "splits the head dim over `model`",
+        "splits the states' head dim over `model`",
     ("xlstm-1.3b", "long_500k"):
         "the port holds less: at one row the reference's first layout does "
         "not fit and it keeps every head's state whole on every rank; a "
@@ -211,6 +200,28 @@ def test_serve_argument_bytes_equal_the_reference_shards(arch, monkeypatch):
                 assert got["states"] == want["states"], shape
             else:
                 assert got["states"] != want["states"], (shape, why)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_multi_pod_decode_state_bytes_equal_the_reference_shards(
+        arch, monkeypatch):
+    """The decode cells at (2, 16, 16): a second pod halves the rows of
+    decode_32k and keeps long_500k's one row (its caches over data x
+    model within a pod); rank 0's states equal the reference's shards
+    but where `STATE_LAYOUTS` says why not."""
+    if arch == "xlstm-1.3b":
+        monkeypatch.setattr(D, "DECODE_PREFILL_LEN", 8)
+    for shape in ("decode_32k", "long_500k"):
+        if shape == "long_500k" and arch not in (
+                "jamba-v0.1-52b", "xlstm-1.3b"):
+            continue
+        want = reference_bytes(arch, shape, (2, 16, 16), None)
+        got = port_bytes(arch, shape, (2, 16, 16), None)
+        assert got["batch"] == want["batch"], shape
+        if (arch, shape) in STATE_LAYOUTS:
+            assert got["states"] != want["states"], shape
+        else:
+            assert got["states"] == want["states"], shape
 
 
 # -- FLOPs against the reference's dot FLOPs ----------------------------------

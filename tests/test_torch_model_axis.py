@@ -44,6 +44,11 @@ port's one rank:
     for gemma2, deepseek, jamba and xlstm (f32 weights: the argmax of
     bf16 logits ties too often): greedy tokens equal one rank's and the
     reference's under the same mesh;
+  * serving whose KV caches split along their length
+    (`worker.SPLIT_SERVE`: gemma2 and starcoder2 cut to 6 heads at (1,
+    4), a one-row gemma2 batch at (2, 2)): tokens equal one rank's and
+    the reference's (JAX job `split`), every step's logits within 1e-5
+    of one rank's, max_len / 4 cache rows a rank;
   * the model-axis plan of every architecture at its published width
     for M = 2, 4, 8, 16 on the meta device: which leaves split, and each
     rank's bytes those of the specs' shards.
@@ -145,6 +150,17 @@ with sh.use_mesh(mesh):
         res[f"{tag}/{name}/serve"] = np.asarray(jserve.generate(
             params, cfg, batch, steps=s, max_len=batch["tokens"].shape[1]
             + s + 8))
+for (d_, m_), name, rows in plan.get("split", ()):
+    smesh = make_host_mesh(d_, m_)
+    with sh.use_mesh(smesh):
+        cfg, d, params = case(smesh, name)
+        pre = f"split{rows}/"
+        batch = {k[len(pre):]: jnp.asarray(v) for k, v in d.items()
+                 if k.startswith(pre)}
+        s = plan["split_gen"]
+        res[f"{d_}x{m_}/{name}/split{rows}"] = np.asarray(jserve.generate(
+            params, cfg, batch, steps=s, max_len=batch["tokens"].shape[1]
+            + s + 8))
 np.savez(os.path.join(out, f"ref_{plan['job']}.npz"), **res)
 """
 
@@ -159,7 +175,12 @@ REF_JOBS = {
             worker.MODEL_SERVE[(2, 2)], ()),
     "1x4": (4, (1, 4), worker.MODEL_TRAIN[(1, 4)], worker.MODEL_FORWARD[
         (1, 4)], (), ("xlstm-2heads",)),
+    # the serving cases whose KV caches split along their length, under
+    # each one's mesh (`SPLIT`)
+    "split": (4, (1, 4), (), (), (), ()),
 }
+SPLIT = [(mesh, name, rows) for mesh, cases in worker.SPLIT_SERVE.items()
+         for name, rows in cases]
 TRAIN = [(f"{d}x{m}", name) for (d, m), names in worker.MODEL_TRAIN.items()
          for name in names]
 FORWARD = [(f"{d}x{m}", name) for (d, m), names in
@@ -213,6 +234,10 @@ def case_inputs(name: str) -> dict:
     sb = serve_mod.make_batch(worker.case_cfg(name), args.batch,
                               args.prompt_len, args.seed, "cpu")
     arrays.update({f"serve/{k}": v.numpy() for k, v in sb.items()})
+    for _, case, rows in SPLIT:
+        if case == name:
+            arrays.update({f"split{rows}/{k}": v.numpy() for k, v in
+                           worker.split_batch(name, rows).items()})
     return arrays
 
 
@@ -230,7 +255,9 @@ def runs(tmp_path_factory):
     for job, (devices, mesh, train, fwd, serve, one) in REF_JOBS.items():
         plan = {"job": job, "mesh": mesh, "cases": worker.MODEL_CASES,
                 "train": train, "forward": fwd, "serve": serve, "one": one,
-                "gen": serve_args("gemma2-2b").gen}
+                "gen": serve_args("gemma2-2b").gen,
+                "split": SPLIT if job == "split" else [],
+                "split_gen": worker.SPLIT_GEN}
         refs[job] = start_ref(MODEL_REF, devices, tmp, json.dumps(plan))
     out = {"tmp": tmp, "inputs": inputs}
     for world in (2, 4):
@@ -558,6 +585,35 @@ def test_serve_tokens_equal_one_rank_and_the_reference(runs, tag, name):
         np.testing.assert_array_equal(out[f"{tag}/{name}/serve"], one)
         np.testing.assert_array_equal(out[f"{tag}/{name}/serve"], want)
     assert one.shape == (4, 6)
+
+
+@pytest.mark.parametrize("mesh,name,rows", SPLIT)
+def test_split_kv_serving_matches_one_rank_and_the_reference(runs, mesh,
+                                                             name, rows):
+    """Serving whose KV caches split along their length over 4 ranks
+    (`worker.SPLIT_SERVE`): every rank's greedy tokens through
+    `launch.serve` equal one rank's and the reference's `generate` under
+    the same mesh, every step's logits lie within 1e-5 of one rank's,
+    and each rank's caches hold max_len / 4 rows."""
+    tag = f"{mesh[0]}x{mesh[1]}"
+    d = runs["inputs"][name]
+    model = convert.model_from(worker.tree_of(d, "params/"),
+                               worker.case_cfg(name), device="cpu")
+    one = serve_mod.run(serve_mod.parse_args(worker.split_argv(name, rows)),
+                        model=model, log=lambda s: None)
+    one_logits = worker.traced_generate(model, worker.split_batch(name, rows),
+                                        rows)
+    assert one.shape == (rows, worker.SPLIT_GEN)
+    assert set(one_logits["cache_rows"].tolist()) == {worker.SPLIT_MAX_LEN}
+    want = runs["ref"][f"{tag}/{name}/split{rows}"]
+    key = f"{tag}/{name}/split{rows}"
+    for out in runs[tag]:
+        np.testing.assert_array_equal(out[f"{key}/tokens"], one)
+        np.testing.assert_array_equal(out[f"{key}/tokens"], want)
+        np.testing.assert_allclose(out[f"{key}/logits"],
+                                   one_logits["logits"], rtol=0, atol=1e-5)
+        assert out[f"{key}/cache_rows"].tolist() == [
+            worker.SPLIT_MAX_LEN // 4] * len(one_logits["cache_rows"])
 
 
 # -- the plan at full width ----------------------------------------------------------

@@ -23,7 +23,9 @@ The jobs:
     the reference's layout, `case_<name>.npz`), each rank's share of
     the work (`record_shares`), the int8
     update on shards a model split cuts, the resident bytes, and
-    resumes across (1, 2) <-> (2, 1);
+    resumes across (1, 2) <-> (2, 1); at world 4 the `SPLIT_SERVE`
+    cases, whose KV caches split along their length: tokens, every
+    step's logits and each rank's cache rows;
   * `dryrun` (tests/test_torch_dryrun.py), at world 2 on a (1, 2) mesh
     and at world 4 on (2, 2): one real train step of each
     `DRYRUN_ARCHS` case under `launch.dryrun.StepCounter` (its FLOPs,
@@ -390,6 +392,17 @@ MODEL_SERVE = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
                         "xlstm-1.3b")}
 MODEL_SERVE_ARGV = ["--smoke", "--device", "cpu", "--batch", "4",
                     "--prompt-len", "12", "--gen", "6"]
+# serving where `sharding.cache_spec` splits the KV length over 4 ranks:
+# {mesh: ((case, batch rows), ...)}.  gemma2 at (1, 4): its 4 q heads
+# split, its 2 kv heads do not (the length over model); starcoder2 cut
+# to 6 heads: whole heads, the length over model; gemma2 at (2, 2), one
+# row: the length over data x model.  max_len = 14 + 10 + 8 = 32, 8
+# rows a rank: the decode steps at positions 14..22 cross the slice
+# boundary at 16, and the smoke window of 16 spans two or three slices.
+SPLIT_SERVE = {(1, 4): (("gemma2-2b", 4), ("starcoder2-6heads", 4)),
+               (2, 2): (("gemma2-2b", 1),)}
+SPLIT_PROMPT, SPLIT_GEN = 14, 10
+SPLIT_MAX_LEN = SPLIT_PROMPT + SPLIT_GEN + 8
 
 
 def case_cfg(name: str):
@@ -533,6 +546,62 @@ def _model_serve(kw: dict, tag: str, data: int, model_n: int,
     return out
 
 
+def split_argv(name: str, rows: int) -> list:
+    return ["--arch", MODEL_CASES[name][0], "--smoke", "--device", "cpu",
+            "--batch", str(rows), "--prompt-len", str(SPLIT_PROMPT),
+            "--gen", str(SPLIT_GEN)]
+
+
+def split_batch(name: str, rows: int) -> dict:
+    """The serve driver's request batch of a `SPLIT_SERVE` case."""
+    return serve_mod.make_batch(case_cfg(name), rows, SPLIT_PROMPT, 0, "cpu")
+
+
+@torch.no_grad()
+def traced_generate(model, batch, rows: int, mesh=None) -> dict:
+    """`launch.serve.generate`'s prefill and greedy decode steps on the
+    serve driver's layout (`SERVE_RULES`, this rank's rows of the
+    `rows`-row batch), recording the whole batch's logits of every step
+    [rows, SPLIT_GEN, V] and each attention layer's cache rows."""
+    zero = ts.Zero3(model, mesh, serve_mod.SERVE_RULES)
+    zero.gather()
+    try:
+        with sh.use_mesh(mesh, serve_mod.SERVE_RULES):
+            mine = {k: sh.batch_rows(v) for k, v in batch.items()}
+            logits, states = M.prefill(model, mine, SPLIT_MAX_LEN, rows)
+            steps = [logits]
+            for t in range(SPLIT_GEN - 1):
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                logits, states = M.decode_step(model, tok, states,
+                                               SPLIT_PROMPT + t)
+                steps.append(logits)
+            lg = sh.batch_gather(torch.stack(steps, dim=1), rows)
+    finally:
+        zero.gather(whole=True)
+    return {"logits": lg.numpy(),
+            "cache_rows": np.asarray([st["k"].shape[1] for st in states
+                                      if "k" in st])}
+
+
+def _split_serve(kw: dict, mesh, tag: str, cases) -> dict:
+    """Each `SPLIT_SERVE` case: `launch.serve`'s tokens, and
+    `traced_generate`'s logits and cache rows."""
+    out = {}
+    for name, rows in cases:
+        d = dict(np.load(os.path.join(kw["inputs"], f"case_{name}.npz")))
+        model = convert.model_from(tree_of(d, "params/"), case_cfg(name),
+                                   device="cpu")
+        data, model_n = mesh.shape["data"], mesh.shape["model"]
+        key = f"{tag}/{name}/split{rows}"
+        out[f"{key}/tokens"] = serve_mod.run(serve_mod.parse_args(
+            split_argv(name, rows) + ["--mesh-data", str(data),
+                                      "--mesh-model", str(model_n)]),
+            model=model, log=lambda s: None)
+        got = traced_generate(model, split_batch(name, rows), rows, mesh)
+        out.update({f"{key}/{k}": v for k, v in got.items()})
+    return out
+
+
 def _job_model_axis(kw: dict) -> dict:
     out = {}
     world = dist.get_world_size()
@@ -547,6 +616,8 @@ def _job_model_axis(kw: dict) -> dict:
                                   MODEL_FORWARD.get((data, model_n), ())))
         out.update(_model_serve(kw, tag, data, model_n,
                                 MODEL_SERVE.get((data, model_n), ())))
+        out.update(_split_serve(kw, mesh, tag,
+                                SPLIT_SERVE.get((data, model_n), ())))
         if (data, model_n) == (1, 2):
             out.update({f"{tag}/{k}": v for k, v in
                         _int8_update(kw, mesh).items()})
