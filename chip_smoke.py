@@ -278,7 +278,13 @@ failure:
      f32 cache, its local and a global layer, cut into the 16 slices of
      the decode_32k cell's model ranks, the partial softmaxes combined
      locally: within 1e-5 of the whole-length `_sdpa`, device ms of
-     both);
+     both); split_state_check (one process: a full-width xlstm-1.3b
+     mLSTM and sLSTM layer's decode step, 8 rows, the states of a
+     64-token prefill cut into the 16 slices of their head dim that the
+     decode_32k cell's model ranks hold: the mLSTM's reads summed
+     locally, h within 1e-6 of its scale of the whole step's, the new
+     rows within 1e-5, m equal; the sLSTM's rows gathered, bit for bit;
+     device ms of each);
  18. [dryrun] (after phase 17 has destroyed its NCCL group: the dry run
      opens a fake process group of its own; no kernel of the six,
      checked): `launch.dryrun.run_cell` on train_gemma2's cell (gemma2-2b
@@ -286,12 +292,15 @@ failure:
      stepped on the meta device: its argument bytes equal phase 16's
      bf16 params + fp32 state + batch exactly, its FLOPs are within 0.5 %
      of `train_flops`' total, its peak within 10 % of phase 16's
-     measured peak (the signed gap printed); then one production cell,
-     gemma2-2b decode_32k as rank 0 of a fake (16, 16) world, its
-     record's summary line, and its argument bytes equal to the
-     parameter shard + token rows + every kv head's f32 cache on 2048 of
-     the 32 768 positions, computed from the config (the figure with
-     the caches at full length printed beside it);
+     measured peak (the signed gap printed); then two production
+     cells as rank 0 of a fake (16, 16) world, gemma2-2b and xlstm-1.3b
+     decode_32k (xlstm's after an 8-token prefill), each record's
+     summary line, and its argument bytes equal to the parameter shard
+     + token rows + the f32 decode states in the reference's layout,
+     computed from the config: gemma2's every kv head's cache on 2048 of
+     the 32 768 positions, xlstm's states split along their head dim
+     (the figure with the states as the port held them before printed
+     beside it);
  13. the kernels line.  Each path of phases 5-12, 14 and 15 runs with the
      launch counts set to 0 just before it and read just after (the
      serve cells add into one path), and fails unless each kernel it
@@ -314,6 +323,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1244,12 +1254,115 @@ def train_mesh_phase(torch, dev, smi: str, seed: int, p16: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     split_kv_check(torch, dev, smi, seed)
+    split_state_check(torch, dev, smi, seed)
     log(f"[train_mesh] phase 17 in {time.perf_counter() - wall:.1f} s")
 
 
 # the slices phase 17's split_kv_check cuts a decode cache into: the
 # (16, 16) mesh's model ranks of gemma2-2b's decode_32k cell
 SPLIT_KV = dict(rows=8, length=32768, slices=16, pos=20000)
+# the slices of the head dim phase 17's split_state_check cuts
+# xlstm-1.3b's decode states into: decode_32k's 8 rows a rank and the
+# (16, 16) mesh's 16 model ranks; the states from a 64-token prefill
+SPLIT_STATE = dict(rows=8, prefill=64, slices=16)
+
+
+def median_device_ms(torch, fn) -> tuple:
+    """(fn()'s result, the median device ms of 5 calls, each between two
+    CUDA events after a warm call)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fn()                                          # warm
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return out, sorted(ms)[2]
+
+
+def split_state_check(torch, dev, smi: str, seed: int) -> None:
+    """Phase 17's split_state_check: one decode step of a full-width
+    xlstm-1.3b mLSTM and sLSTM layer (d 2048, 4 heads of 512, f32
+    weights from `seed`) at decode_32k's 8 rows a rank, from the states
+    of a 64-token prefill, whole and over the head dim cut into 16
+    slices of 32 rows (what the (16, 16) mesh's model ranks hold: the
+    reference's layout, `sharding.state_spec`), combined in this
+    process: the mLSTM's h (`xlstm.mlstm_step_slices`: each slice's
+    reads of C and n summed) within 1e-6 of its scale (max(1, |h|): the
+    reads sum in another order than the whole dot products, a few ulps
+    of an |h| that reaches 40 here) of `_mlstm_chunk`'s one step (TF32
+    is off), its new rows of C / n within 1e-5, m bit-equal; the sLSTM
+    (`xlstm.slstm_step_slices`: the rows gathered, the whole step) bit
+    for bit.  Prints the device ms of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32")
+    b, n = SPLIT_STATE["rows"], SPLIT_STATE["slices"]
+    d, hn = cfg.d_model, cfg.num_heads
+    dh = d // hn
+    w = dh // n
+    bounds = [(r * w, (r + 1) * w) for r in range(n)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ml = xlstm.MLstm(cfg, device=dev)
+    ml.reset_parameters(g)
+    sl = xlstm.SLstm(cfg, device=dev)
+    sl.reset_parameters(g)
+    x = torch.randn((b, SPLIT_STATE["prefill"], d), generator=g, device=dev)
+    xt = torch.randn((b, 1, d), generator=g, device=dev)
+    timed = functools.partial(median_device_ms, torch)
+    with torch.no_grad():
+        _, mst = xlstm.mlstm_with_state(ml, x)
+        _, sst = xlstm.slstm_with_state(sl, x)
+        q, k, v, li, lf = xlstm.mlstm_step_inputs(ml, xt)
+        parts = [(mst[0][:, :, lo:hi].contiguous(),
+                  mst[1][:, :, lo:hi].contiguous(), mst[2])
+                 for lo, hi in bounds]
+        (want, (wc, wn, wm)), whole_ms = timed(
+            lambda: xlstm._mlstm_chunk(q, k, v, li, lf, mst))
+        (got, new), split_ms = timed(lambda: xlstm.mlstm_step_slices(
+            q, k, v, li, lf, parts, bounds))
+        h_err = float((got - want).abs().max())
+        h_gate = 1e-6 * max(1.0, float(want.abs().max()))
+        c_err = max(float((c - wc[:, :, lo:hi]).abs().max()) for (c, _, _),
+                    (lo, hi) in zip(new, bounds))
+        n_err = max(float((nn - wn[:, :, lo:hi]).abs().max()) for (_, nn, _),
+                    (lo, hi) in zip(new, bounds))
+        m_eq = all(torch.equal(m, wm) for _, _, m in new)
+        log(f"[train_mesh] split_state_check: xlstm-1.3b mLSTM decode, {b} "
+            f"rows, C [{b}, {hn}, {dh}, {dh}] f32 from a "
+            f"{SPLIT_STATE['prefill']}-token prefill, cut into {n} slices "
+            f"of {w} rows of the key dim: h {h_err:.3g} from the whole "
+            f"step (|h| <= {float(want.abs().max()):.3g}; gate "
+            f"{h_gate:.3g}), new C / n rows {c_err:.3g} / {n_err:.3g} "
+            f"(gate 1e-5), m "
+            f"{'bit-equal' if m_eq else 'DIFFERENT'}; {split_ms:.3f} ms "
+            f"over the slices against {whole_ms:.3f} ms whole (median of "
+            f"5, device ms; {smi})")
+        sparts = [tuple(t[..., lo:hi].contiguous() for t in sst)
+                  for lo, hi in bounds]
+        (s_want, s_whole), s_whole_ms = timed(
+            lambda: xlstm.slstm_decode(sl, xt, sst))
+        (s_got, s_new), s_split_ms = timed(
+            lambda: xlstm.slstm_step_slices(sl, xt, sparts, bounds))
+        same = torch.equal(s_got, s_want) and all(
+            torch.equal(t, wt[..., lo:hi]) for rows, (lo, hi) in
+            zip(s_new, bounds) for t, wt in zip(rows, s_whole))
+        log(f"[train_mesh] split_state_check: xlstm-1.3b sLSTM decode, {b} "
+            f"rows, c / n / h / m cut into {n} slices of {w} rows of the "
+            f"head dim, gathered for the step: output and states "
+            f"{'bit-equal to' if same else 'DIFFERENT FROM'} the whole "
+            f"step's; {s_split_ms:.3f} ms over the slices against "
+            f"{s_whole_ms:.3f} ms whole (median of 5, device ms; {smi})")
+    if not (h_err <= h_gate and c_err <= 1e-5 and n_err <= 1e-5 and m_eq):
+        raise AssertionError(f"split_state_check mLSTM: h {h_err} (gate "
+                             f"{h_gate}), C {c_err}, n {n_err}, m equal "
+                             f"{m_eq}")
+    if not same:
+        raise AssertionError("split_state_check sLSTM: not bit-equal")
 
 
 def split_kv_check(torch, dev, smi: str, seed: int) -> None:
@@ -1275,20 +1388,7 @@ def split_kv_check(torch, dev, smi: str, seed: int) -> None:
     kv = (b, length, cfg.num_kv_heads, cfg.head_dim)
     ck = torch.randn(kv, generator=g, device=dev)
     cv = torch.randn(kv, generator=g, device=dev)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-
-    def timed(fn):
-        fn()                                      # warm
-        ms = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            ev[0].record()
-            out = fn()
-            ev[1].record()
-            torch.cuda.synchronize()
-            ms.append(ev[0].elapsed_time(ev[1]))
-        return out, sorted(ms)[2]
-
+    timed = functools.partial(median_device_ms, torch)
     w = length // n
     with torch.no_grad():
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
@@ -1315,42 +1415,95 @@ def split_kv_check(torch, dev, smi: str, seed: int) -> None:
 
 # -- 18. [dryrun]: the dry run against phase 16's step --------------------
 
-# the production cell phase 18 steps in a fake world of 256 ranks
-DRYRUN_CELL = ("gemma2-2b", "decode_32k")
+# the production cells phase 18 steps in a fake world of 256 ranks:
+# (arch, shape, the prefill's tokens before the decode step: xlstm's
+# sLSTM steps one token at a time on the meta device, and the states'
+# shapes do not depend on it)
+DRYRUN_CELLS = (("gemma2-2b", "decode_32k", None),
+                ("xlstm-1.3b", "decode_32k", 8))
 
 
 def decode_cell_bytes(arch: str, shape: str, mesh: tuple) -> tuple:
-    """(rank 0's argument bytes of a decode cell of an attention-only
-    arch whose kv heads do not divide over the model axis, computed
-    from its config: the parameter shard (`launch.mesh.model_axis_plan`),
-    the token rows (int32) and the f32 k / v caches of every layer, each
-    holding every kv head on length / model positions; the same with
-    the caches at full length)."""
+    """(rank 0's argument bytes of a decode cell whose states the model
+    axis does not split by heads, computed from its config: the
+    parameter shard (`launch.mesh.model_axis_plan`), the token rows
+    (int32) and the f32 decode states in the reference's layout; the
+    same with the states as the port held them before that layout).
+    An attention-only arch whose kv heads do not divide over the model
+    axis: every layer's k / v caches hold every kv head on length /
+    model positions (before: the full length).  xlstm-1.3b, whose heads
+    do not divide: each mLSTM layer holds C [rows, H, dh / M, dh], n
+    [rows, H, dh / M] and m [rows, H], each sLSTM layer c, n, h, m
+    [rows, H, dh / M] (before: the mLSTM the heads its q / k / v columns
+    touch, whole; the sLSTM every head whole)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch.mesh import model_axis_plan
 
     cfg = get_config(arch)
     data, model = mesh
-    if cfg.num_kv_heads % model == 0 or any(
-            cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
-        raise ValueError(f"{arch}: not a cell whose caches split over model")
     spec = SHAPES[shape]
     rows = spec.global_batch // data
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     params = sum(math.prod(local) * nbytes for _, local, nbytes in
                  model_axis_plan(cfg, data, model, 0).values())
+    params += 4 * rows
+    if cfg.xlstm and cfg.num_heads % model and cfg.d_model % model == 0:
+        hn = cfg.num_heads
+        dh = cfg.d_model // hn
+        w, cols = dh // model, cfg.d_model // model
+        ran = -(-cols // dh)                    # rank 0's heads run
+        mlstm, slstm = kinds.count("mlstm"), kinds.count("slstm")
+        split = (mlstm * rows * hn * (w * dh + w + 1)
+                 + slstm * 4 * rows * hn * w) * 4
+        before = (mlstm * rows * ran * (dh * dh + dh + 1)
+                  + slstm * 4 * rows * hn * dh) * 4
+        return params + split, params + before
+    if cfg.num_kv_heads % model == 0 or set(kinds) != {"attn"}:
+        raise ValueError(f"{arch}: not a cell whose states split but by "
+                         f"heads")
     cache = 2 * cfg.num_layers * rows * cfg.num_kv_heads * cfg.head_dim * 4
-    return (params + 4 * rows + cache * (spec.seq_len // model),
-            params + 4 * rows + cache * spec.seq_len)
+    return (params + cache * (spec.seq_len // model),
+            params + cache * spec.seq_len)
+
+
+def decode_cell_check(dryrun, arch: str, shape: str,
+                      prefill: int | None) -> None:
+    """One production decode cell at (16, 16) (a `prefill`-token
+    prefill where given): its argument bytes against
+    `decode_cell_bytes`'.  Raises where they differ."""
+    keep = dryrun.DECODE_PREFILL_LEN
+    dryrun.DECODE_PREFILL_LEN = prefill or keep
+    try:
+        prod = dryrun.run_cell(arch, shape, False)
+    finally:
+        dryrun.DECODE_PREFILL_LEN = keep
+    log(f"[dryrun] {arch} {shape} rank 0 of (16, 16), computed on the meta "
+        f"device (a {prefill or keep}-token prefill): "
+        f"{dryrun.summary(prod)}; wire bytes by op "
+        f"{prod['collectives']['bytes_by_op']}, counts "
+        f"{prod['collectives']['counts']}")
+    want, before = decode_cell_bytes(arch, shape, (16, 16))
+    got = prod["memory"]["argument_bytes"]
+    log(f"[dryrun] {arch} {shape} argument bytes {got} ({got / 2**30:.2f} "
+        f"GiB) vs the parameter shard + rows + the decode states in the "
+        f"reference's layout, from the config: {want} "
+        f"({'equal' if got == want else 'DIFFERENT'}); with the states as "
+        f"the port held them before that layout: {before} "
+        f"({before / 2**30:.2f} GiB)")
+    if got != want:
+        raise AssertionError(f"dryrun: {arch} {shape} argument bytes {got} "
+                             f"!= the reference's layout's {want}")
 
 
 def dryrun_phase(p16: dict, smi: str) -> None:
     """Phase 18 [dryrun]: `launch.dryrun`'s counts of train_gemma2's step
     (built on the meta device, rank 0 of a fake one-rank world) held
     against what phase 16 measured on the card and against
-    `train_flops`, then one production cell.  Raises on a failed check."""
+    `train_flops`, then the production decode cells (`DRYRUN_CELLS`,
+    `decode_cell_check`).  Raises on a failed check."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.shapes import SHAPES, ShapeSpec
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.train import train_step as ts
 
@@ -1378,24 +1531,8 @@ def dryrun_phase(p16: dict, smi: str) -> None:
         f"(temp {mem['temp_bytes']}) vs phase 16's measured "
         f"{p16['peak']} ({peak_gap * 100:+.2f} %, limit 10 %); the card's "
         f"memory {rec['device_memory_bytes']} ({smi})")
-    arch, shape = DRYRUN_CELL
-    prod = dryrun.run_cell(arch, shape, False)
-    log(f"[dryrun] {arch} {shape} rank 0 of (16, 16), computed on the meta "
-        f"device: {dryrun.summary(prod)}; wire bytes by op "
-        f"{prod['collectives']['bytes_by_op']}, counts "
-        f"{prod['collectives']['counts']}")
-    split_args, whole_args = decode_cell_bytes(arch, shape, (16, 16))
-    got_args = prod["memory"]["argument_bytes"]
-    seq = SHAPES[shape].seq_len
-    log(f"[dryrun] {arch} {shape} argument bytes {got_args} "
-        f"({got_args / 2**30:.2f} GiB) vs the parameter shard + rows + "
-        f"every kv head's cache on {seq // 16} of {seq} positions, from the config: {split_args} "
-        f"({'equal' if got_args == split_args else 'DIFFERENT'}); with "
-        f"the caches at full length a rank, as before the length split: "
-        f"{whole_args} ({whole_args / 2**30:.2f} GiB)")
-    if got_args != split_args:
-        raise AssertionError(f"dryrun: {arch} {shape} argument bytes "
-                             f"{got_args} != the split layout's {split_args}")
+    for arch, shape, prefill in DRYRUN_CELLS:
+        decode_cell_check(dryrun, arch, shape, prefill)
     if mem["argument_bytes"] != want_args:
         raise AssertionError(f"dryrun: argument bytes {mem['argument_bytes']}"
                              f" != phase 16's {want_args}")

@@ -19,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.core.corpus import DenseCorpus, SparseCorpus
 from repro_torch.core.store import BucketStore
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import sharding as sh
 from repro_torch.models.model import STATE_FIELDS, Model
 
 
@@ -205,3 +206,39 @@ def decode_states_from(states, cfg: ModelConfig, *, device=None) -> list:
         else:
             out.append({k: leaf(v, p) for k, v in sub.items()})
     return out
+
+
+def decode_states_for_rank(states: list, cfg: ModelConfig) -> list:
+    """Whole decode states (`decode_states_from`'s, or one device's
+    `models.model.prefill`'s) cut to this rank's share under the current
+    mesh (`sharding.use_mesh`, the default rules), as `prefill` lays
+    them out there: each cache by `sharding.cache_spec`, with its
+    `LengthSplit` where the length splits; each recurrent state by
+    `sharding.state_spec`, with an xLSTM layer's `HeadDimSplit` where its
+    heads are not over `model`.  Each leaf is `sharding.local_slices`'
+    shard, in storage of its own; outside a mesh the states as given."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return states
+    out = []
+    for i, st in enumerate(states):
+        kind = cfg.layer_kind(i)
+        new = {}
+        for f, t in st.items():
+            shape = tuple(t.shape)
+            spec = (sh.cache_spec(shape) if kind == "attn" else
+                    sh.state_spec(kind, f, shape))
+            new[f] = t[sh.local_slices(mesh, spec, shape)].clone()
+        for pre in ("", "x") if kind == "attn" else ():
+            if pre + "k" in st:
+                split = sh.length_split(tuple(st[pre + "k"].shape))
+                if split is not None:
+                    new[pre + "kv_split"] = split
+        if kind in ("mlstm", "slstm"):
+            split = sh.head_dim_split(kind, tuple(
+                st["C" if kind == "mlstm" else "c"].shape))
+            if split is not None:
+                new["dh_split"] = split
+        out.append(new)
+    return out
+

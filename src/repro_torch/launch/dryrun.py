@@ -446,10 +446,10 @@ def _decode_prefill_batch(cfg: ModelConfig, b: int, s: int) -> dict:
 
 def _states_of(model, zero, mesh, rules, cfg, b: int, s: int):
     """This rank's decode states: a `DECODE_PREFILL_LEN`-token prefill
-    at max_len s (the KV caches padded to s, and laid out as the
-    reference's `_decode_state_shardings` lays them out:
-    `sharding.cache_spec`), as the reference builds them, with the
-    gathered weights."""
+    at max_len s (the KV caches padded to s, and every state laid out
+    as the reference's `_decode_state_shardings` lays it out:
+    `sharding.cache_spec`, `sharding.state_spec`), as the reference
+    builds them, with the gathered weights."""
     rows = _rows(mesh, rules, _decode_prefill_batch(cfg, b, s))
     zero.gather()
     try:
@@ -546,8 +546,9 @@ def run_cell(arch: str, shape, multi_pod: bool, unroll: bool = False,
     # the reference's key, for the most any rank holds: the same as this
     # rank's, since `sharding.local_slices` cuts a split dim into equal
     # chunks (and refuses one that does not divide), and the rows and
-    # decode states split evenly too (a split cache length takes only a
-    # candidate that divides whole: `sharding.cache_spec`)
+    # decode states split evenly too (a split cache length or head dim
+    # takes only a candidate that divides whole: `sharding.cache_spec`,
+    # `sharding.state_spec`)
     rec["memory"]["argument_bytes_max_rank"] = \
         rec["memory"]["argument_bytes"]
     mem = rec["memory"]

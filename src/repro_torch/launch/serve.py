@@ -22,10 +22,14 @@ the batch must divide over D, or be one row, which every rank serves
 whole), and the tokens are all-gathered, so every rank returns the
 whole batch; rank 0 prints.  The logits of a split vocab are gathered
 before the argmax, so greedy tokens (ties to the lowest id) equal one
-rank's.  The KV caches take the reference's layout
+rank's.  The decode states take the reference's layout.  The KV caches
 (`sharding.cache_spec`): where the kv heads do not divide over M, or
 the batch is one row, each rank holds a slice of the length, and the
-decode step combines the ranks' partial softmaxes.
+decode step combines the ranks' partial softmaxes.  The xLSTM's states
+(`sharding.state_spec`): where the heads do not divide over M, each
+rank holds every head on its rows of the head dim (the mLSTM's reads of
+them summed over the ranks, the sLSTM's gathered for each step), or at
+one row every head whole.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ vocab-parallel lookup (this rank's rows, zeros for the others' tokens,
 summed over the ranks: exact), `logits_from_hidden` gives this rank's
 vocab columns (the tied embedding's shard is the embedding's),
 `prefill` / `decode_step` gather them into the whole [B, V] logits,
-and the decode states hold this rank's heads and channels.
+and the decode states take the reference's dry-run layout (below).
 `prefix_proj` is not split over model.
 
 Decode states are one dict per layer.  Attention: `k` / `v` [B, max_len,
@@ -47,9 +47,12 @@ heads, or where they do not divide (or the batch is one row) every kv
 head on this rank's slice of the length, with its
 `sharding.LengthSplit` under `kv_split` / `xkv_split`.  Mamba: `h` [B,
 di, N] f32 and `conv` [B, d_conv - 1, di].  mLSTM: `C`, `n`, `m`;
-sLSTM: `c`, `n`, `h`, `m` (the reference's tuples, by name).  Recurrent
-states are fixed-size and are replaced at each step; `pos` is no input
-to them.
+sLSTM: `c`, `n`, `h`, `m` (the reference's tuples, by name); over a
+mesh laid out as the reference's dry run lays them out
+(`sharding.state_spec`): this rank's heads, or where they do not divide
+every head on this rank's rows of the head dim (or whole, at one row),
+with its `sharding.HeadDimSplit` under `dh_split`.  Recurrent states are
+fixed-size and are replaced at each step; `pos` is no input to them.
 """
 
 from __future__ import annotations
@@ -143,8 +146,13 @@ class Block(nn.Module):
     def _recur(self, h, mode, state):
         _, with_state, decode, fields = _RECURRENT[self.kind]
         mixer = getattr(self, self.kind)
+        split = None
         if mode == "decode":
-            mix, st = decode(mixer, h, tuple(state[f] for f in fields))
+            # an xLSTM state laid out over its head dim, or every head
+            # whole (`xlstm.lay_out_states`)
+            split = state.get("dh_split")
+            kw = {} if split is None else {"split": split}
+            mix, st = decode(mixer, h, tuple(state[f] for f in fields), **kw)
         else:
             mix, st = with_state(mixer, h)
         if mode == "prefill":
@@ -152,7 +160,10 @@ class Block(nn.Module):
             # conv's last rows are views of the prefill's whole buffers,
             # which they would keep alive through the decode
             st = tuple(t.clone() for t in st)
-        return mix, ({} if mode == "train" else dict(zip(fields, st)))
+        out = {} if mode == "train" else dict(zip(fields, st))
+        if split is not None:
+            out["dh_split"] = split
+        return mix, out
 
     def forward(self, x, positions, enc_out=None, mode: str = "train",
                 state=None, pos: int | None = None):
@@ -429,14 +440,20 @@ def prefill(model: Model, batch, max_len: int, rows: int | None = None):
     where that splits the length, the cache keeps every kv head (those
     of the other model ranks gathered) on this rank's rows [lo, hi) of
     the length, and its `LengthSplit` goes with it (`kv_split` /
-    `xkv_split`)."""
+    `xkv_split`).  An mLSTM / sLSTM layer's states are laid out by
+    `sharding.state_spec` on their global shapes [rows, H, ...]
+    (`xlstm.lay_out_states`): this rank's heads, or every head on this
+    rank's rows of the head dim or whole, with its
+    `sharding.HeadDimSplit` under `dh_split`."""
     if rows is None:
         if sh.batch_group()[1] > 1:
             raise ValueError("prefill over data-parallel ranks needs the "
                              "global batch's rows")
         rows = next(iter(batch.values())).shape[0]
     hidden, states, _ = _run(model, batch, "prefill")
-    for st in states:
+    for blk, st in zip(model.blocks, states):
+        if blk.kind in ("mlstm", "slstm"):
+            st.update(xlstm.lay_out_states(blk.kind, model.cfg, st, rows))
         if "k" in st:
             st.update(_lay_out(model.cfg, st["k"], st["v"], rows, max_len))
         if "xk" in st:

@@ -32,11 +32,15 @@ gradient over the model group), `leave` sums the ranks' partial outputs
 `model_gather` all-gathers a split tensor.  With a model group of size 1
 every one of them returns its input.
 
-The decode caches take the reference's dry-run layout (`cache_spec`):
-kv heads over `model`, else the KV length over `model`, else (a batch
-of one row) over `data` x `model`; `length_split` gives this rank's
-slice of a split length, whose `reduce` combines the ranks' partial
-attention.
+The decode states take the reference's dry-run layout.  The caches
+(`cache_spec`): kv heads over `model`, else the KV length over `model`,
+else (a batch of one row) over `data` x `model`; `length_split` gives
+this rank's slice of a split length, whose `reduce` combines the ranks'
+partial attention.  The recurrent states (`state_spec`): mamba's
+channels over `model`; the xLSTM's heads over `model`, else their head
+dim, else every head whole; `head_dim_split` gives this rank's rows of
+the head dim, whose `reduce` / `gather` the mLSTM / sLSTM decode step
+uses.
 """
 
 from __future__ import annotations
@@ -570,9 +574,9 @@ def _fit_spec(sizes: dict, candidate: tuple, shape: tuple) -> tuple:
 
 
 def _cache_sizes() -> dict:
-    """The current mesh's axis sizes as the cache layout reads them: the
-    model axis at `model_size()` (a preset that puts `model` among the
-    batch axes splits no heads, so no cache either)."""
+    """The current mesh's axis sizes as the decode states' layout reads
+    them: the model axis at `model_size()` (a preset that puts `model`
+    among the batch axes splits no heads, so no state either)."""
     sizes = dict(_CTX.mesh.shape)
     if "model" in sizes:
         sizes["model"] = model_size()
@@ -595,15 +599,33 @@ def cache_spec(shape: tuple) -> tuple:
     outside a mesh."""
     if _CTX.mesh is None:
         return (None,) * len(shape)
+    bx = _state_batch_axes()
+    return _pick(shape, ((bx, None, "model", None),
+                         (bx, "model", None, None),
+                         (None, ("data", "model"), None, None)))
+
+
+def _state_batch_axes() -> tuple:
+    """The batch axes of the decode states: `pod` and `data`, as the
+    reference's."""
+    return tuple(a for a in ("pod", "data") if a in _CTX.mesh.shape)
+
+
+def _pick(shape: tuple, candidates: tuple) -> tuple:
+    """The first candidate that fits `shape` whole, else the first one
+    fitted: the reference's `_pick`."""
     sizes = _cache_sizes()
-    bx = tuple(a for a in ("pod", "data") if a in sizes)
-    candidates = ((bx, None, "model", None), (bx, "model", None, None),
-                  (None, ("data", "model"), None, None))
     for cand in candidates:
         spec, full = _fit_spec(sizes, cand, shape)
         if full:
             return spec
     return _fit_spec(sizes, candidates[0], shape)[0]
+
+
+def _axes_over(entry, sizes: dict) -> tuple:
+    """The mesh axes of a spec entry that have more than one rank."""
+    return tuple(a for a in ((entry,) if isinstance(entry, str)
+                             else entry or ()) if sizes[a] > 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -634,10 +656,7 @@ def length_split(shape: tuple) -> LengthSplit | None:
     `model`, or nothing split)."""
     if _CTX.mesh is None:
         return None
-    sizes = _cache_sizes()
-    entry = cache_spec(shape)[1]
-    axes = tuple(a for a in ((entry,) if isinstance(entry, str)
-                             else entry or ()) if sizes[a] > 1)
+    axes = _axes_over(cache_spec(shape)[1], _cache_sizes())
     if not axes:
         return None
     # the axes kept have the mesh's own sizes (only a `model` axis that
@@ -645,3 +664,94 @@ def length_split(shape: tuple) -> LengthSplit | None:
     start, stop, _ = local_slices(_CTX.mesh, (None, axes), shape[:2])[
         1].indices(shape[1])
     return LengthSplit(axes, start, stop, shape[1])
+
+
+# -- the recurrent states' layout ---------------------------------------------
+
+
+def state_spec(kind: str, field: str, shape: tuple) -> tuple:
+    """The spec of a recurrent decode state of global shape `shape` on
+    the current mesh, as the reference's `_decode_state_shardings` picks
+    it (`_pick`), the rows over the batch axes (`pod`, `data`) in every
+    candidate:
+
+      mamba (`kind` "mamba"): `h` [B, di, N] its channels over `model`;
+        `conv` [B, d_conv - 1, di] its channels over `model`;
+      mLSTM / sLSTM (`kind` "mlstm" / "slstm"), every field [B, H, ...]:
+        1. the heads over `model`;
+        2. the head dim (dim 2) over `model`, for a field that has one
+           (not the mLSTM's `m` [B, H]);
+        else the first candidate fitted: where the heads do not divide
+        and the rows do not split (a batch of one row), every head
+        whole.
+
+    All Nones outside a mesh."""
+    if _CTX.mesh is None:
+        return (None,) * len(shape)
+    bx = _state_batch_axes()
+    rest = (None,) * (len(shape) - 2)
+    if kind == "mamba":
+        return _pick(shape, ((bx, "model", None),) if field == "h" else
+                     ((bx, None, "model"),))
+    if kind not in ("mlstm", "slstm"):
+        raise ValueError(f"no recurrent state of kind {kind!r}")
+    cands = ((bx, "model") + rest,)
+    if rest:
+        cands += ((bx, None, "model") + rest[1:],)
+    return _pick(shape, cands)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadDimSplit:
+    """This rank's rows [lo, hi) of an xLSTM state's head dim of `size`,
+    which the mesh axes `axes` split (`head_dim_split`); the state then
+    holds every head.  No axes: every head whole on every rank."""
+    axes: tuple
+    lo: int
+    hi: int
+    size: int
+
+    @property
+    def whole(self) -> bool:
+        return self.hi - self.lo == self.size
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the ranks that split the head dim."""
+        if not self.axes:
+            return t
+        y = t.detach().clone()
+        dist.all_reduce(y, group=_CTX.mesh.group(self.axes))
+        return y
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole head dim from each rank's rows of it, `t`'s last dim
+        (in rank order: `local_slices`' chunks)."""
+        if not self.axes:
+            return t
+        t0 = t.movedim(-1, 0).contiguous()
+        out = t0.new_empty((self.size,) + tuple(t0.shape[1:]))
+        dist.all_gather_into_tensor(out, t0,
+                                    group=_CTX.mesh.group(self.axes))
+        return out.movedim(0, -1)
+
+
+def head_dim_split(kind: str, shape: tuple) -> HeadDimSplit | None:
+    """The layout of an mLSTM / sLSTM layer's decode states, from the
+    global shape [B, H, dh, ...] of its first field (`C` / `c`): None
+    where each rank holds its heads (`state_spec` puts them over
+    `model`), or where nothing splits the model axis; else this rank's
+    `HeadDimSplit`, rows [lo, hi) of the head dim where `state_spec`
+    splits it over `model` (`local_slices`' chunk), or all of them (no
+    axes) where every head is whole on every rank."""
+    if _CTX.mesh is None or model_size() == 1:
+        return None
+    sizes = _cache_sizes()
+    spec = state_spec(kind, None, shape)
+    if _axes_over(spec[1], sizes):
+        return None
+    axes = _axes_over(spec[2], sizes)
+    if not axes:
+        return HeadDimSplit((), 0, shape[2], shape[2])
+    start, stop, _ = local_slices(_CTX.mesh, (None, None, axes),
+                                  shape[:3])[2].indices(shape[2])
+    return HeadDimSplit(axes, start, stop, shape[2])

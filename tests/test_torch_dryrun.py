@@ -9,10 +9,10 @@
     under the default rules, and gemma2's and deepseek's under zero3 and
     zero3b, parameters + optimizer state + batch rows exactly; each
     arch's prefill_32k and decode_32k cells at (16, 16) (and the
-    long_500k cells of the two archs that run it), parameters and batch
-    exactly, and the decode states exactly where both packages lay them
-    out alike (`STATE_LAYOUTS` names each cell where they differ, and
-    why: xLSTM's only), and the decode states at (2, 16, 16) too;
+    long_500k cells of the two archs that run it), parameters, batch
+    and decode states exactly (the caches by `sharding.cache_spec`, the
+    recurrent states by `sharding.state_spec`), and the decode states at
+    (2, 16, 16) too;
   * the FLOPs of one train step, prefill and decode step of each arch's
     SMOKE config at (1, 1), under `unroll_scope(True)` on both sides,
     against the reference's dot FLOPs: 2 x prod(result) x prod(contracted
@@ -163,23 +163,6 @@ def test_train_argument_bytes_equal_the_reference_shards(arch, shape, sizes,
     assert got == want
 
 
-# Decode cells whose states the two packages lay out differently (rank
-# 0's bytes), and why.  Everywhere else they are equal: the attention
-# caches follow `sharding.cache_spec`, the reference's candidates (kv
-# heads over `model`; else the length over `model`; else, at one row,
-# over `data` x `model`).
-STATE_LAYOUTS = {
-    ("xlstm-1.3b", "decode_32k"):
-        "4 heads over 16 model ranks: a rank runs the head its columns cut "
-        "and holds that head's whole mLSTM / sLSTM state; the reference "
-        "splits the states' head dim over `model`",
-    ("xlstm-1.3b", "long_500k"):
-        "the port holds less: at one row the reference's first layout does "
-        "not fit and it keeps every head's state whole on every rank; a "
-        "port rank holds its one head's",
-}
-
-
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_serve_argument_bytes_equal_the_reference_shards(arch, monkeypatch):
     if arch == "xlstm-1.3b":
@@ -195,11 +178,7 @@ def test_serve_argument_bytes_equal_the_reference_shards(arch, monkeypatch):
         assert got["params"] == want["params"], shape
         assert got["batch"] == want["batch"], shape
         if "states" in got:
-            why = STATE_LAYOUTS.get((arch, shape))
-            if why is None:
-                assert got["states"] == want["states"], shape
-            else:
-                assert got["states"] != want["states"], (shape, why)
+            assert got["states"] == want["states"], shape
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -207,8 +186,8 @@ def test_multi_pod_decode_state_bytes_equal_the_reference_shards(
         arch, monkeypatch):
     """The decode cells at (2, 16, 16): a second pod halves the rows of
     decode_32k and keeps long_500k's one row (its caches over data x
-    model within a pod); rank 0's states equal the reference's shards
-    but where `STATE_LAYOUTS` says why not."""
+    model within a pod); rank 0's states equal the reference's
+    shards."""
     if arch == "xlstm-1.3b":
         monkeypatch.setattr(D, "DECODE_PREFILL_LEN", 8)
     for shape in ("decode_32k", "long_500k"):
@@ -218,10 +197,7 @@ def test_multi_pod_decode_state_bytes_equal_the_reference_shards(
         want = reference_bytes(arch, shape, (2, 16, 16), None)
         got = port_bytes(arch, shape, (2, 16, 16), None)
         assert got["batch"] == want["batch"], shape
-        if (arch, shape) in STATE_LAYOUTS:
-            assert got["states"] != want["states"], shape
-        else:
-            assert got["states"] == want["states"], shape
+        assert got["states"] == want["states"], shape
 
 
 # -- FLOPs against the reference's dot FLOPs ----------------------------------

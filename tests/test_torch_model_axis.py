@@ -46,9 +46,14 @@ port's one rank:
     reference's under the same mesh;
   * serving whose KV caches split along their length
     (`worker.SPLIT_SERVE`: gemma2 and starcoder2 cut to 6 heads at (1,
-    4), a one-row gemma2 batch at (2, 2)): tokens equal one rank's and
+    4), a one-row gemma2 batch at (2, 2)), and whose xLSTM states split
+    along their head dim (cut to 2 heads at (1, 4)) or are whole on
+    every rank (3 heads, one row at (2, 2)): tokens equal one rank's and
     the reference's (JAX job `split`), every step's logits within 1e-5
-    of one rank's, max_len / 4 cache rows a rank;
+    of one rank's, max_len / 4 cache rows a rank, each rank's state
+    bytes the reference's shards (`_decode_state_shardings`) and its
+    states within 1e-5 of one rank's prefill cut to its layout (of each
+    leaf's scale: C sums 14 tokens' k v products);
   * the model-axis plan of every architecture at its published width
     for M = 2, 4, 8, 16 on the meta device: which leaves split, and each
     rank's bytes those of the specs' shards.
@@ -590,23 +595,31 @@ def test_serve_tokens_equal_one_rank_and_the_reference(runs, tag, name):
 @pytest.mark.parametrize("mesh,name,rows", SPLIT)
 def test_split_kv_serving_matches_one_rank_and_the_reference(runs, mesh,
                                                              name, rows):
-    """Serving whose KV caches split along their length over 4 ranks
-    (`worker.SPLIT_SERVE`): every rank's greedy tokens through
-    `launch.serve` equal one rank's and the reference's `generate` under
-    the same mesh, every step's logits lie within 1e-5 of one rank's,
-    and each rank's caches hold max_len / 4 rows."""
+    """Serving whose decode states are not a rank's heads over 4 ranks
+    (`worker.SPLIT_SERVE`: KV caches split along their length, xLSTM
+    states along their head dim or whole): every rank's greedy tokens
+    through `launch.serve` equal one rank's and the reference's
+    `generate` under the same mesh, every step's logits lie within 1e-5
+    of one rank's, each rank's caches hold max_len / 4 rows, its state
+    bytes are the reference's shards, and its states are one rank's cut
+    to its layout."""
     tag = f"{mesh[0]}x{mesh[1]}"
     d = runs["inputs"][name]
-    model = convert.model_from(worker.tree_of(d, "params/"),
-                               worker.case_cfg(name), device="cpu")
+    cfg = worker.case_cfg(name)
+    model = convert.model_from(worker.tree_of(d, "params/"), cfg,
+                               device="cpu")
     one = serve_mod.run(serve_mod.parse_args(worker.split_argv(name, rows)),
                         model=model, log=lambda s: None)
-    one_logits = worker.traced_generate(model, worker.split_batch(name, rows),
-                                        rows)
+    batch = worker.split_batch(name, rows)
+    one_logits = worker.traced_generate(model, batch, rows)
     assert one.shape == (rows, worker.SPLIT_GEN)
-    assert set(one_logits["cache_rows"].tolist()) == {worker.SPLIT_MAX_LEN}
+    assert set(one_logits["cache_rows"].tolist()) == (
+        set() if cfg.xlstm else {worker.SPLIT_MAX_LEN})
     want = runs["ref"][f"{tag}/{name}/split{rows}"]
     key = f"{tag}/{name}/split{rows}"
+    with torch.no_grad():
+        _, whole = M.prefill(model, batch, worker.SPLIT_MAX_LEN)
+    shards = reference_state_bytes(name, whole, mesh)
     for out in runs[tag]:
         np.testing.assert_array_equal(out[f"{key}/tokens"], one)
         np.testing.assert_array_equal(out[f"{key}/tokens"], want)
@@ -614,6 +627,35 @@ def test_split_kv_serving_matches_one_rank_and_the_reference(runs, mesh,
                                    one_logits["logits"], rtol=0, atol=1e-5)
         assert out[f"{key}/cache_rows"].tolist() == [
             worker.SPLIT_MAX_LEN // 4] * len(one_logits["cache_rows"])
+        assert out[f"{key}/state_bytes"].tolist() == shards
+        assert float(out[f"{key}/state_err"]) <= 1e-5
+
+
+def reference_state_bytes(name: str, states: list, mesh: tuple) -> list:
+    """Each layer's decode-state bytes a rank under the reference's
+    `_decode_state_shardings` on a (D, M) AbstractMesh, from one device's
+    whole f32 states: each layer's leaves on a leading [1] periods axis
+    under the reference's keys (an xLSTM layer's tuple as s0, s1,
+    ...)."""
+    from jax.sharding import AbstractMesh
+
+    from repro.launch import dryrun as jdry
+
+    arch, over = worker.MODEL_CASES[name]
+    cfg = worker.case_cfg(name)
+    tree = {}
+    for i, st in enumerate(states):
+        fields = M.STATE_FIELDS.get(cfg.layer_kind(i), ())
+        keys = {f: f"s{j}" for j, f in enumerate(fields)} if cfg.xlstm \
+            else {k: k for k in st}
+        tree[f"sub{i}"] = {keys[k]: jax.ShapeDtypeStruct(
+            (1,) + tuple(t.shape), np.float32) for k, t in st.items()}
+    jc = dataclasses.replace(j_get_config(arch, smoke=True), **over)
+    got = jdry._decode_state_shardings(jc, tree, AbstractMesh(
+        mesh, ("data", "model")), False)
+    return [sum(math.prod(s.shard_shape(tree[f"sub{i}"][k].shape)) * 4
+                for k, s in got[f"sub{i}"].items())
+            for i in range(len(states))]
 
 
 # -- the plan at full width ----------------------------------------------------------

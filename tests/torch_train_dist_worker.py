@@ -375,7 +375,13 @@ MODEL_CASES = {**{a: (a, {}) for a in ARCH_NAMES},
                                                     head_dim=32)),
                # 6 heads do not divide over M = 4 (the attention runs
                # whole on every rank) while d_ff does
-               "starcoder2-6heads": ("starcoder2-7b", dict(num_heads=6))}
+               "starcoder2-6heads": ("starcoder2-7b", dict(num_heads=6)),
+               # 3 heads of 16 do not divide over M = 2: at one row the
+               # xLSTM's states are whole on every rank
+               "xlstm-3heads": ("xlstm-1.3b", dict(d_model=48,
+                                                    num_heads=3,
+                                                    num_kv_heads=3,
+                                                    head_dim=16))}
 MODEL_TRAIN = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-2layers",
                         "xlstm-1.3b"),
                (2, 2): ("gemma2-2b", "deepseek-moe-16b"),
@@ -392,15 +398,19 @@ MODEL_SERVE = {(1, 2): ("gemma2-2b", "deepseek-moe-16b", "jamba-v0.1-52b",
                         "xlstm-1.3b")}
 MODEL_SERVE_ARGV = ["--smoke", "--device", "cpu", "--batch", "4",
                     "--prompt-len", "12", "--gen", "6"]
-# serving where `sharding.cache_spec` splits the KV length over 4 ranks:
-# {mesh: ((case, batch rows), ...)}.  gemma2 at (1, 4): its 4 q heads
-# split, its 2 kv heads do not (the length over model); starcoder2 cut
-# to 6 heads: whole heads, the length over model; gemma2 at (2, 2), one
-# row: the length over data x model.  max_len = 14 + 10 + 8 = 32, 8
-# rows a rank: the decode steps at positions 14..22 cross the slice
-# boundary at 16, and the smoke window of 16 spans two or three slices.
-SPLIT_SERVE = {(1, 4): (("gemma2-2b", 4), ("starcoder2-6heads", 4)),
-               (2, 2): (("gemma2-2b", 1),)}
+# serving where the decode states' layout (`sharding.cache_spec`,
+# `sharding.state_spec`) is not a rank's heads: {mesh: ((case, batch
+# rows), ...)}.  gemma2 at (1, 4): its 4 q heads split, its 2 kv heads
+# do not (the length over model); starcoder2 cut to 6 heads: whole
+# heads, the length over model; xlstm cut to 2 heads of 32: the head dim
+# over model (8 rows of it a rank); gemma2 at (2, 2), one row: the
+# length over data x model; xlstm cut to 3 heads at (2, 2), one row:
+# every head whole on every rank.  max_len = 14 + 10 + 8 = 32, 8 rows a
+# rank: the decode steps at positions 14..22 cross the slice boundary at
+# 16, and the smoke window of 16 spans two or three slices.
+SPLIT_SERVE = {(1, 4): (("gemma2-2b", 4), ("starcoder2-6heads", 4),
+                        ("xlstm-2heads", 4)),
+               (2, 2): (("gemma2-2b", 1), ("xlstm-3heads", 1))}
 SPLIT_PROMPT, SPLIT_GEN = 14, 10
 SPLIT_MAX_LEN = SPLIT_PROMPT + SPLIT_GEN + 8
 
@@ -557,18 +567,31 @@ def split_batch(name: str, rows: int) -> dict:
     return serve_mod.make_batch(case_cfg(name), rows, SPLIT_PROMPT, 0, "cpu")
 
 
+def state_bytes(states) -> np.ndarray:
+    """Each layer's decode-state bytes (its tensors')."""
+    return np.asarray([sum(t.numel() * t.element_size() for t in st.values()
+                           if isinstance(t, torch.Tensor)) for st in states])
+
+
 @torch.no_grad()
 def traced_generate(model, batch, rows: int, mesh=None) -> dict:
     """`launch.serve.generate`'s prefill and greedy decode steps on the
     serve driver's layout (`SERVE_RULES`, this rank's rows of the
     `rows`-row batch), recording the whole batch's logits of every step
-    [rows, SPLIT_GEN, V] and each attention layer's cache rows."""
+    [rows, SPLIT_GEN, V], each attention layer's cache rows, each
+    layer's state bytes after the prefill and, on a mesh, how far its
+    states stand from one device's prefill cut to this rank's layout
+    (`convert.decode_states_for_rank`): the largest distance of a leaf
+    over max(1, the leaf's largest magnitude), inf where a shape or a
+    split differs."""
     zero = ts.Zero3(model, mesh, serve_mod.SERVE_RULES)
     zero.gather()
     try:
         with sh.use_mesh(mesh, serve_mod.SERVE_RULES):
             mine = {k: sh.batch_rows(v) for k, v in batch.items()}
             logits, states = M.prefill(model, mine, SPLIT_MAX_LEN, rows)
+            prefilled = [{k: t.clone() if isinstance(t, torch.Tensor) else t
+                          for k, t in st.items()} for st in states]
             steps = [logits]
             for t in range(SPLIT_GEN - 1):
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -578,9 +601,27 @@ def traced_generate(model, batch, rows: int, mesh=None) -> dict:
             lg = sh.batch_gather(torch.stack(steps, dim=1), rows)
     finally:
         zero.gather(whole=True)
-    return {"logits": lg.numpy(),
-            "cache_rows": np.asarray([st["k"].shape[1] for st in states
-                                      if "k" in st])}
+    out = {"logits": lg.numpy(),
+           "cache_rows": np.asarray([st["k"].shape[1] for st in states
+                                     if "k" in st]),
+           "state_bytes": state_bytes(prefilled)}
+    if mesh is not None:
+        _, whole = M.prefill(model, batch, SPLIT_MAX_LEN)
+        with sh.use_mesh(mesh, serve_mod.SERVE_RULES):
+            want = convert.decode_states_for_rank(whole, model.cfg)
+        err = 0.0
+        for got, w in zip(prefilled, want):
+            assert got.keys() == w.keys()
+            for k, t in got.items():
+                if not isinstance(t, torch.Tensor):
+                    err = max(err, 0.0 if t == w[k] else np.inf)
+                elif t.shape != w[k].shape:
+                    err = np.inf
+                else:
+                    err = max(err, float((t - w[k]).abs().max()) / max(
+                        1.0, float(w[k].abs().max())))
+        out["state_err"] = np.asarray(err)
+    return out
 
 
 def _split_serve(kw: dict, mesh, tag: str, cases) -> dict:
